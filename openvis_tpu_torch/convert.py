@@ -74,23 +74,28 @@ def params_from_flax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """The flax path of the port's parameter ``key`` of rank ``ndim``: a
+    Dense/Conv ``weight`` is flax's ``kernel``, a norm ``weight`` its
+    ``scale``."""
+    *mods, leaf = key.split(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return (*mods, leaf)
+
+
 def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of :func:`params_from_flax` (f32 numpy leaves)."""
     tree: Dict[str, Any] = {}
     for key, t in state.items():
-        *mods, leaf = key.split(".")
         arr = t.detach().cpu().float().numpy()
-        if leaf == "weight":
-            if arr.ndim == 2:
-                arr, leaf = arr.T, "kernel"
-            elif arr.ndim == 4:
-                arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
-            else:
-                leaf = "scale"
+        *mods, leaf = flax_path(key, arr.ndim)
+        if leaf == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr)  # a copy: never a view of a live tensor
     return tree
 
 

@@ -63,6 +63,7 @@ class MSDeformAttnModule(nn.Module):
         reference_points: torch.Tensor,  # (B, Lq, n_levels, 2) normalized (x, y)
         value_src: torch.Tensor,         # (B, Len_in, C)
         spatial_shapes: Sequence[Tuple[int, int]],
+        normalizer: torch.Tensor,        # (n_levels, 2) f32 (W, H): level_normalizer
     ) -> torch.Tensor:
         b, lq, d = query.shape
         nh, nl, p = self.n_heads, self.n_levels, self.n_points
@@ -72,9 +73,6 @@ class MSDeformAttnModule(nn.Module):
         attn = softmax_f32(attn, dim=-1).view(b, lq, nh, nl, p)
         # sampling LOCATIONS are f32 whatever the compute dtype (a bf16
         # coordinate is ~2 px off on wide maps)
-        normalizer = torch.tensor(
-            [[w, h] for (h, w) in spatial_shapes], dtype=torch.float32
-        ).to(query.device, non_blocking=True)
         ref = reference_points.float()
         loc = (ref[:, :, None, :, None, :]
                + offsets.float() / normalizer[None, None, None, :, None, :])
@@ -92,11 +90,21 @@ class MSDeformAttnEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
-        attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes)
+    def forward(self, src, pos, reference_points, spatial_shapes, normalizer):
+        attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes,
+                                  normalizer)
         src = amp_norm(self.norm1, src + attn_out)
         ff = self.linear2(F.relu(self.linear1(src)))
         return amp_norm(self.norm2, src + ff)
+
+
+def level_normalizer(spatial_shapes, device=None) -> torch.Tensor:
+    """(n_levels, 2) f32 (W, H) of each level, the divisor of the sampling
+    offsets; built once per encoder call.  The host-to-device copy does not
+    wait for the stream (a blocking copy would stall the host behind the
+    backbone's queued work)."""
+    return torch.tensor([[w, h] for (h, w) in spatial_shapes],
+                        dtype=torch.float32).to(device, non_blocking=True)
 
 
 def encoder_reference_points(spatial_shapes, device=None) -> torch.Tensor:
@@ -124,8 +132,9 @@ class MSDeformAttnEncoder(nn.Module):
     def forward(self, src, pos, spatial_shapes):
         ref = encoder_reference_points(spatial_shapes, src.device)
         ref = ref[None].expand(src.shape[0], *ref.shape)
+        normalizer = level_normalizer(spatial_shapes, src.device)
         for i in range(self.num_layers):
-            src = getattr(self, f"layer{i}")(src, pos, ref, spatial_shapes)
+            src = getattr(self, f"layer{i}")(src, pos, ref, spatial_shapes, normalizer)
         return src
 
 

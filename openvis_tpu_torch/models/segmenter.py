@@ -14,7 +14,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from openvis_tpu.config import ModelConfig
+from openvis_tpu_torch.config import ModelConfig
 from openvis_tpu_torch.models.backbone.resnet import ResNet, feature_channels
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from openvis_tpu_torch.models.transformer_decoder import MaskedTransformerDecoder

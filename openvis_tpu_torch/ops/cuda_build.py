@@ -15,8 +15,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -64,6 +65,12 @@ def build(name: str) -> Path:
     os.replace(tmp, lib)
     build_logs[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
     return lib
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Compile several sources at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

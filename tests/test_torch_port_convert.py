@@ -63,7 +63,7 @@ def _flat(tree, prefix=()):
 
 def test_round_trip_is_exact(flax_tree):
     cfg, tree = flax_tree
-    model = load_flax_params(train.build_model(cfg), tree)
+    model = load_flax_params(train.build_model(cfg, device="cpu"), tree)
     back = dict(_flat(flax_from_state_dict(model.state_dict())))
     orig = dict(_flat(jax.tree.map(np.asarray, tree)))
     assert back.keys() == orig.keys()
@@ -104,24 +104,24 @@ def test_rejects_missing_extra_and_misshapen_keys(flax_tree):
     missing = jax.tree.map(lambda x: x, tree)
     del missing["segmenter"]["predictor"]["query_embed"]
     with pytest.raises(RuntimeError, match="Missing key"):
-        load_flax_params(train.build_model(cfg), missing)
+        load_flax_params(train.build_model(cfg, device="cpu"), missing)
     extra = jax.tree.map(lambda x: x, tree)
     extra["segmenter"]["predictor"]["stray"] = np.zeros(3, np.float32)
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        load_flax_params(train.build_model(cfg), extra)
+        load_flax_params(train.build_model(cfg, device="cpu"), extra)
     bad = jax.tree.map(lambda x: x, tree)
     bad["non_object_embedding"] = np.zeros((2, D), np.float32)
     with pytest.raises(RuntimeError, match="size mismatch"):
-        load_flax_params(train.build_model(cfg), bad)
+        load_flax_params(train.build_model(cfg, device="cpu"), bad)
     with pytest.raises(ValueError, match="kernel of rank 3"):
         params_from_flax({"x": {"kernel": np.zeros((2, 2, 2), np.float32)}})
 
 
 def test_seeded_init(flax_tree):
     cfg, _ = flax_tree
-    a = init_params(train.build_model(cfg), seed=3).state_dict()
-    b = init_params(train.build_model(cfg), seed=3).state_dict()
-    c = init_params(train.build_model(cfg), seed=4).state_dict()
+    a = init_params(train.build_model(cfg, device="cpu"), seed=3).state_dict()
+    b = init_params(train.build_model(cfg, device="cpu"), seed=3).state_dict()
+    c = init_params(train.build_model(cfg, device="cpu"), seed=4).state_dict()
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
     assert not torch.equal(a["segmenter.predictor.query_feat"], c["segmenter.predictor.query_feat"])

@@ -60,7 +60,7 @@ def setup():
         if "norm" in "/".join(str(getattr(k, "key", k)) for k in p).lower() else v,
         params,
     )
-    tm = load_flax_params(train.build_model(cfg), jax.tree.map(np.asarray, params))
+    tm = load_flax_params(train.build_model(cfg, device="cpu"), jax.tree.map(np.asarray, params))
     return cfg, jm, params, tm, frames, text
 
 
@@ -119,17 +119,20 @@ def test_forward_and_eval_match_jax_bf16(setup):
 
 
 def test_port_runs_without_jax_in_fresh_interpreter():
-    """The port imports no JAX, and its CPU path launches no kernel."""
+    """The port imports neither JAX nor the JAX package, through an eval
+    window and a train step, and its CPU path launches no kernel."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         sys.path.insert(0, {str(REPO)!r})
         import torch
         from openvis_tpu_torch import Config, train
         from openvis_tpu_torch.convert import init_params
-        from openvis_tpu_torch.ops import hungarian_cuda, msda_cuda
+        from openvis_tpu_torch.ops import hungarian_cuda, msda_cuda, point_sample_cuda
+        from openvis_tpu_torch.structures import ClipTargets
         cfg = Config()
         m = dataclasses.replace(
             cfg.model, num_classes=3,
+            criterion=dataclasses.replace(cfg.model.criterion, train_num_points=16),
             pixel_decoder=dataclasses.replace(
                 cfg.model.pixel_decoder, conv_dim=64, mask_dim=64,
                 transformer_enc_layers=1, dim_feedforward=64, num_heads=4),
@@ -138,14 +141,27 @@ def test_port_runs_without_jax_in_fresh_interpreter():
                 nheads=4, dim_feedforward=64, dec_layers=1, mask_dim=64,
                 clip_embed_dim=16))
         cfg = dataclasses.replace(cfg, model=m)
-        model = init_params(train.build_model(cfg), seed=0)
+        model = init_params(train.build_model(cfg, device="cpu"), seed=0)
         g = torch.Generator().manual_seed(0)
         out = train.make_eval_fn(cfg, model)(
             torch.randn(3, 64, 96, 3, generator=g), torch.randn(3, 16, generator=g))
         assert out["mask_logits"].shape == (10, 3, 16, 24), out["mask_logits"].shape
         assert all(torch.isfinite(v.float()).all() for v in out.values())
+        step = train.build_train_step(cfg, model, 3, device="cpu")
+        batch = dict(pixels=torch.randn(1, 2, 64, 96, 3, generator=g),
+                     text_feats=torch.randn(3, 16, generator=g),
+                     targets=ClipTargets(torch.tensor([[0, 2]]),
+                                         torch.rand(1, 2, 2, 64, 96, generator=g) > 0.8,
+                                         torch.ones(1, 2, dtype=torch.bool),
+                                         torch.ones(1, 2, 2, dtype=torch.bool)))
+        metrics = step(batch, g)
+        assert all(torch.isfinite(v) for v in metrics.values()), metrics
         assert msda_cuda.launches == 0 and hungarian_cuda.launches == 0
+        assert msda_cuda.dcoord_launches == msda_cuda.dvalue_launches == 0
+        assert point_sample_cuda.fwd_launches == point_sample_cuda.dvalue_launches == 0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] == "openvis_tpu")
+        assert not leaked, leaked
         print("OK")
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
