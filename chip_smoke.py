@@ -7,11 +7,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
   0. device: refuses to run without CUDA; prints the card's name and power limit
   1. build: compiles the hand-written kernels from ``openvis_tpu_torch/csrc``,
-     one ``nvcc`` per source, all at once
-  2. K1 (MSDA forward) against ``ms_deform_attn_plain`` on the card
+     one ``nvcc`` per source, all at once; each kernel's registers, stack and
+     spills from ptxas
+  2. K1 (MSDA forward) against ``ms_deform_attn_plain`` on the card, at the
+     eval, above-the-TPU-gate, train and one-level shapes, with the
+     instantiation each takes
   3. K4 (batched Hungarian) against scipy and ``hungarian_plain``
-  4. K2 / K3 (MSDA backward) against the plain backward at the train and eval
-     encoder shapes, f32 and bf16
+  4. K2 / K3 (MSDA backward) against the plain backward at the train, eval
+     and one-level encoder shapes, f32 and bf16
   5. K5 / K6 (shared-point sampler and its dValue) against the plain sampler
      and its autograd at the three train shapes, bf16 and f32 maps, with
      ``F.grid_sample`` and its backward timed as yardsticks
@@ -22,6 +25,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      masters, AdamW; one warm-up and three timed steps, with the launch counts
      of all six kernels, frozen parameters fixed and the encoder's
      sampling-offset weights moved
+  8b. K1 and K2 on the inputs the first encoder layer gave them in the warm-up
+     window of phase 6 and the warm-up step of phase 8, against the plain
+     versions, timed beside their bounds
   9. one f32 train-step loss and gradient on the card (kernels) against the
      CPU (plain) at 1x2x192x320, N=8, from the same weights and points
 
@@ -37,6 +43,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -76,6 +83,9 @@ MSDA_CASES = {  # name -> (batch, levels)
     "above_tpu_vmem_gate": (WINDOW_FRAMES, [(24, 42), (48, 84), (96, 168)]),
     # the train step's encoder: 2 frames at 480x864
     "train_encoder": (2, [(15, 27), (30, 54), (60, 108)]),
+    # one level per launch, as the TPU's per-level v1 kernels sample: the
+    # train encoder's largest level (the generic instantiation)
+    "one_level_v1": (2, [(60, 108)]),
 }
 MSDA_HEADS, MSDA_CH, MSDA_POINTS = 8, 32, 4
 HUNGARIAN_CASES = {  # name -> (batch, rows, cols)
@@ -97,6 +107,7 @@ CHECK_TRAIN_H, CHECK_TRAIN_W, CHECK_TRAIN_N = 192, 320, 8
 MSDA_BWD_CASES = {
     "train_encoder": (2, [(15, 27), (30, 54), (60, 108)]),
     "eval_encoder": (10, [(12, 20), (24, 40), (48, 80)]),
+    "one_level_v1": (2, [(60, 108)]),
 }
 # phase 5: the sampler's train shapes (B = 2 frames, 120x216 mask logits)
 SAMPLER_CASES = {  # name -> (batch, rows, H, W, points)
@@ -108,6 +119,9 @@ SAMPLER_CASES = {  # name -> (batch, rows, H, W, points)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# K1 and K2 per sample (a corner inside its level) and channel: four corner
+# multiply-adds (K1: out += w_c v_c; K2: S_c += g v_c), 8 f32 operations
+MSDA_FLOPS = 8.0
 
 # stated tolerances: |kernel - plain| <= ATOL + RTOL * |plain|, elementwise
 MSDA_TOL = {
@@ -192,13 +206,34 @@ def phase_build():
     msda_cuda.bwd_library()
     hungarian_cuda.library()
     point_sample_cuda.library()
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
-        for name, (_, log) in cuda_build.build_logs.items()
-    }
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": {k: v[0] for k, v in cuda_build.build_logs.items()},
-          "ptxas": ptxas})
+          "ptxas": {name: ptxas_report(log)
+                    for name, (_, log) in cuda_build.build_logs.items()}})
+
+
+def ptxas_report(log: str):
+    """Registers, stack and spills of each kernel from ``-Xptxas -v``."""
+    kernels, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            kernels.append({"kernel": name})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and kernels:
+            kernels[-1].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernels:
+            kernels[-1]["registers"] = int(m[1])
+    try:  # readable template arguments where binutils is installed
+        names = subprocess.run(["c++filt"], input="\n".join(k["kernel"] for k in kernels),
+                               capture_output=True, text=True, timeout=60, check=True)
+        for k, n in zip(kernels, names.stdout.splitlines()):
+            k["kernel"] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return kernels
 
 
 def _msda_inputs(b, levels, dtype, gen):
@@ -223,6 +258,14 @@ def _msda_in_range(levels, loc) -> int:
     return n
 
 
+def _plan(*tensors):
+    """The K1 (three tensors) or K2 (four) instantiation these inputs take."""
+    plan = msda_cuda.launch_plan(*tensors)
+    names = {msda_cuda.MAIN: "main", msda_cuda.GENERIC: "generic"}
+    return {"variant": names[plan.variant], "vec": plan.vec, "lanes": plan.lanes,
+            "blocks": plan.blocks, "threads": msda_cuda.THREADS}
+
+
 def phase_msda():
     """K1 against its plain version; returns its JSON fields at the train
     encoder shape in bf16 (the AMP train step's)."""
@@ -240,19 +283,19 @@ def phase_msda():
             max_abs = diff.max().item()
             k_ms = time_cuda(lambda: msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn))
             p_ms = time_cuda(lambda: ms_deform_attn_plain(value, levels, loc, attn))
+            b_ms, b_by = bound(nbytes(value, loc, attn, got),
+                               MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH)
             emit({"phase": "k1_msda_fwd", "case": case, "levels": levels,
                   "batch": batch, "dtype": str(dtype).replace("torch.", ""),
+                  "plan": _plan(value, loc, attn),
                   "max_abs_err": max_abs,
                   "max_rel_err": max_abs / max(ref.float().abs().max().item(), 1e-30),
                   "tol": {"atol": atol, "rtol": rtol}, "within_tol": ok,
-                  "kernel_ms": k_ms, "plain_ms": p_ms})
+                  "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
             if not ok:
                 raise AssertionError(f"K1 disagrees with its plain version ({case}, {dtype})")
             worst = max(worst, max_abs)
             if case == "train_encoder" and dtype == torch.bfloat16:
-                samples = _msda_in_range(levels, loc)
-                b_ms, b_by = bound(nbytes(value, loc, attn, got),
-                                   10.0 * samples * MSDA_CH)
                 main = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
     return {"max_abs_err": worst, **main}
 
@@ -348,14 +391,20 @@ def phase_msda_bwd():
                 value, levels, loc, attn, g, dvalue=False), iters=5)
             k3_plain = time_cuda(lambda: ms_deform_attn_bwd_plain(
                 value, levels, loc, attn, g, dcoords=False), iters=5)
+            samples = _msda_in_range(levels, loc)
+            k2_b = bound(nbytes(value, loc, attn, g, dloc, dattn), MSDA_FLOPS * samples * MSDA_CH)
+            k3_b = bound(nbytes(loc, attn, g, dvalue), 9.0 * samples * MSDA_CH)
             emit({"phase": "k2_k3_msda_bwd", "case": case, "batch": b, "levels": levels,
                   "dtype": str(dtype).replace("torch.", ""),
+                  "k2_plan": _plan(value, loc, attn, g),
                   "errors": {k: {"within_tol": c[0], "max_abs_err": c[1],
                                  "max_err_rel_to_max": c[2]} for k, c in checks.items()},
                   "tol": {"rel_to_max": BWD_REL_TO_MAX, "rtol_f32_outputs": BWD_RTOL[torch.float32],
                           "rtol_outputs_in_dtype": BWD_RTOL[dtype]},
                   "k2_ms": k2_ms, "k3_ms": k3_ms,
-                  "k2_plain_ms": k2_plain, "k3_plain_ms": k3_plain})
+                  "k2_plain_ms": k2_plain, "k3_plain_ms": k3_plain,
+                  "k2_bound_ms": k2_b[0], "k2_bound_by": k2_b[1],
+                  "k3_bound_ms": k3_b[0], "k3_bound_by": k3_b[1]})
             bad = [k for k, c in checks.items() if not c[0]]
             if bad:
                 raise AssertionError(f"K2/K3 disagree with the plain backward ({case}, {dtype}): {bad}")
@@ -364,13 +413,115 @@ def phase_msda_bwd():
             out["msda_dvalue"]["max_abs_err"] = max(out["msda_dvalue"]["max_abs_err"],
                                                     checks["dvalue"][1])
             if case == "train_encoder" and dtype == torch.bfloat16:
-                samples = _msda_in_range(levels, loc)
-                k2_b = bound(nbytes(value, loc, attn, g, dloc, dattn), 23.0 * samples * MSDA_CH)
-                k3_b = bound(nbytes(loc, attn, g, dvalue), 9.0 * samples * MSDA_CH)
                 out["msda_dcoord"].update(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b[0],
                                           bound_by=k2_b[1])
                 out["msda_dvalue"].update(ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_b[0],
                                           bound_by=k3_b[1])
+    return out
+
+
+class MsdaRecorder:
+    """Wraps the K1 and K2 wrappers for one run of a path and keeps host
+    copies of the first encoder layer's inputs (so that they add nothing to
+    the paths' peak device memory): K1's first call (layer 0 runs first in
+    the forward) and K2's last (layer 0's gradient comes last), with the
+    instantiation each call took."""
+
+    def __enter__(self):
+        self.fwd = self.dcoord = None
+        self._k1, self._k2 = msda_cuda.ms_deform_attn_cuda, msda_cuda.msda_dcoord_cuda
+
+        def k1(value, shapes, loc, attn):
+            if self.fwd is None:
+                self.fwd = ((value.cpu(), list(shapes), loc.cpu(), attn.cpu()),
+                            _plan(value, loc, attn))
+            return self._k1(value, shapes, loc, attn)
+
+        def k2(value, shapes, loc, attn, g):
+            self.dcoord = ((value.cpu(), list(shapes), loc.cpu(), attn.cpu(), g.cpu()),
+                           _plan(value, loc, attn, g))
+            return self._k2(value, shapes, loc, attn, g)
+
+        msda_cuda.ms_deform_attn_cuda, msda_cuda.msda_dcoord_cuda = k1, k2
+        return self
+
+    def __exit__(self, *exc):
+        msda_cuda.ms_deform_attn_cuda, msda_cuda.msda_dcoord_cuda = self._k1, self._k2
+
+
+def _on_pixel_centres(levels, loc) -> float:
+    """Share of the samples whose pixel coordinates are whole numbers (the
+    ring-bias init's samples), where the bilinear slope is one-sided."""
+    hits, n = 0, 0
+    for lvl, (h, w) in enumerate(levels):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        hits += int(((x == x.floor()) & (y == y.floor())).sum())
+        n += x.numel()
+    return hits / max(n, 1)
+
+
+def _bound_parts(nbytes_moved, flops):
+    """The two times whose larger is ``bound``'s, as JSON fields."""
+    return {"bound_bytes_ms": nbytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_operations_ms": flops / F32_FLOPS * 1e3}
+
+
+def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
+    """K1 and K2 on the inputs the first encoder layer gave them on the paths
+    (phases 6 and 8: a full-width eval window and train step), against the
+    plain versions with the tolerances of phases 2 and 4, timed beside their
+    bounds; returns the kernels line's recorded-input times."""
+    out = {}
+    for path, rec in (("eval", eval_rec), ("train", train_rec)):
+        (value, levels, loc, attn), plan = rec.fwd
+        value, loc, attn = (t.to(DEVICE) for t in (value, loc, attn))
+        got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn)
+        ref = ms_deform_attn_plain(value, levels, loc, attn)
+        torch.cuda.synchronize()
+        atol, rtol = MSDA_TOL[value.dtype]
+        diff = (got.float() - ref.float()).abs()
+        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+        k_ms = time_cuda(lambda: msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn))
+        moved = nbytes(value, loc, attn, got)
+        flops = MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH
+        b_ms, b_by = bound(moved, flops)
+        emit({"phase": "k1_recorded_inputs", "path": path, "layer": 0,
+              "batch": value.shape[0], "levels": levels,
+              "dtypes": [str(t.dtype).replace("torch.", "") for t in (value, loc, attn)],
+              "plan": plan, "on_pixel_centres": _on_pixel_centres(levels, loc),
+              "max_abs_err": diff.max().item(), "tol": {"atol": atol, "rtol": rtol},
+              "within_tol": ok, "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+              **_bound_parts(moved, flops)})
+        if not ok:
+            raise AssertionError(f"K1 disagrees with its plain version on the {path} inputs")
+        out.setdefault("msda_fwd", {})[f"recorded_{path}_ms"] = k_ms
+
+    (value, levels, loc, attn, g), plan = train_rec.dcoord
+    value, loc, attn, g = (t.to(DEVICE) for t in (value, loc, attn, g))
+    dloc, dattn = msda_cuda.msda_dcoord_cuda(value, levels, loc, attn, g)
+    _, ref_loc, ref_attn = ms_deform_attn_bwd_plain(value, levels, loc, attn, g, dvalue=False)
+    torch.cuda.synchronize()
+    checks = {"dloc": _check_close(dloc, ref_loc, BWD_REL_TO_MAX, BWD_RTOL[torch.float32]),
+              "dattn": _check_close(dattn, ref_attn, BWD_REL_TO_MAX, BWD_RTOL[attn.dtype])}
+    k2_ms = time_cuda(lambda: msda_cuda.msda_dcoord_cuda(value, levels, loc, attn, g))
+    k3_ms = time_cuda(lambda: msda_cuda.msda_dvalue_cuda(value, levels, loc, attn, g))
+    moved = nbytes(value, loc, attn, g, dloc, dattn)
+    flops = MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH
+    b_ms, b_by = bound(moved, flops)
+    emit({"phase": "k2_recorded_inputs", "path": "train", "layer": 0,
+          "batch": value.shape[0], "levels": levels,
+          "dtypes": [str(t.dtype).replace("torch.", "") for t in (value, loc, attn, g)],
+          "plan": plan, "on_pixel_centres": _on_pixel_centres(levels, loc),
+          "errors": {k: {"within_tol": c[0], "max_abs_err": c[1], "max_err_rel_to_max": c[2]}
+                     for k, c in checks.items()},
+          "tol": {"rel_to_max": BWD_REL_TO_MAX, "rtol_f32_outputs": BWD_RTOL[torch.float32],
+                  "rtol_outputs_in_dtype": BWD_RTOL[attn.dtype]},
+          "k2_ms": k2_ms, "k2_bound_ms": b_ms, "k2_bound_by": b_by, "k3_ms": k3_ms,
+          **{f"k2_{k}": v for k, v in _bound_parts(moved, flops).items()}})
+    if not all(c[0] for c in checks.values()):
+        raise AssertionError("K2 disagrees with the plain backward on the train inputs")
+    out["msda_dcoord"] = {"recorded_train_ms": k2_ms}
     return out
 
 
@@ -482,9 +633,9 @@ def read_counts():
             "point_sample_dvalue": point_sample_cuda.dvalue_launches}
 
 
-def phase_slice(card: str):
+def phase_slice(card: str, rec: MsdaRecorder):
     """The eval path at full width, bf16: three windows; returns the launch
-    counts of the timed run."""
+    counts of the timed run.  The warm-up window's MSDA inputs go to ``rec``."""
     cfg = _full_config()
     model = init_params(train.build_model(cfg), seed=SEED)
     model = model.to(dtype=torch.bfloat16).eval()
@@ -497,7 +648,8 @@ def phase_slice(card: str):
     ]
     text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
 
-    eval_fn(windows[0], text)  # warm-up: cuDNN autotuning, allocator
+    with rec:
+        eval_fn(windows[0], text)  # warm-up: cuDNN autotuning, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
@@ -573,9 +725,9 @@ def _train_batch(rng, h, w, n, device):
             "text_feats": torch.from_numpy(_text(rng)).to(device)}
 
 
-def phase_train(card: str):
+def phase_train(card: str, rec: MsdaRecorder):
     """The train step at full width, bf16 AMP; returns the launch counts of
-    the timed steps."""
+    the timed steps.  The warm-up step's MSDA inputs go to ``rec``."""
     cfg = _full_config()
     model = init_params(train.build_model(cfg), seed=SEED)
     frozen_params = [p for m in model.modules() if isinstance(m, FrozenAffine)
@@ -587,7 +739,8 @@ def phase_train(card: str):
     batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
 
-    step(batch, gen)  # warm-up: cuDNN autotuning, allocator
+    with rec:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
@@ -735,9 +888,12 @@ def main() -> int:
     fields = {"msda_fwd": phase_msda(), "hungarian": phase_hungarian()}
     fields.update(phase_msda_bwd())
     fields.update(phase_sampler())
-    eval_launches = phase_slice(card)
+    eval_rec, train_rec = MsdaRecorder(), MsdaRecorder()
+    eval_launches = phase_slice(card, eval_rec)
     phase_slice_vs_plain()
-    train_launches = phase_train(card)
+    train_launches = phase_train(card, train_rec)
+    for name, extra in phase_msda_recorded(eval_rec, train_rec).items():
+        fields[name].update(extra)
     phase_train_vs_plain()
     leaked = [m for m in ("jax", "openvis_tpu") if m in sys.modules]
     if leaked:
@@ -757,7 +913,8 @@ def main() -> int:
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],
          "bound_by": fields[name]["bound_by"],
-         "library_ms": fields[name].get("library_ms")}
+         "library_ms": fields[name].get("library_ms"),
+         **{k: v for k, v in fields[name].items() if k.startswith("recorded_")}}
         for name, (src, replaces) in meta.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

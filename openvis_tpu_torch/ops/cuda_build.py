@@ -1,9 +1,10 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It is
-compiled at first use for Hopper (``sm_90a``) into ``openvis_tpu_torch/_build/``
-(listed in ``.gitignore``), under a name that carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never loaded.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface; it may
+include the ``csrc/*.cuh`` headers.  It is compiled at first use for Hopper
+(``sm_90a``) into ``openvis_tpu_torch/_build/`` (listed in ``.gitignore``),
+under a name that carries a hash of the source, the headers and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.
 Only sources in this repository are built.
 """
 
@@ -41,13 +42,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` as it stands now is built."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib = library_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,11 +6,34 @@ Counterparts of ``openvis_tpu/ops/msda_pallas.py::_msda_fused`` (forward) and
 tensor either launches them or raises, there is no fallback.  ``launches``
 (K1), ``dcoord_launches`` (K2) and ``dvalue_launches`` (K3) count the
 successful launches.
+
+K1 and K2 come in two instantiations of one kernel each; ``launch_plan``
+picks one from the shape, the value dtype and the pointers' alignment, and
+computes the grid:
+
+  * ``MAIN``: the main path's 3 levels, 4 points and 32 channels, specialised
+    at compile time, with 16-byte loads (8 bf16 or 4 f32 values) of values,
+    locations and weights and int32 offsets (every pointer 16-byte aligned,
+    the extents below 2**31);
+  * ``GENERIC``: everything else, one value per load and int64 offsets.
+
+Each (batch, query, head) is a group of ``lanes`` consecutive threads (a
+power of two up to 32); each lane owns ``vec`` consecutive channels, or every
+``lanes * vec``-th run of them when the channels are more.  Outputs are fresh
+``torch.empty`` tensors, which the caching allocator aligns to 512 bytes.
+
+The plan is made here, not in the C launchers, so that the choice can be
+tested without ``nvcc`` or a card (``tests/test_torch_port_msda_launch.py``),
+reported by ``chip_smoke.py``, and forced to time one instantiation against
+the other (``tools/torch_bench_msda_variants.py``).  The C side keeps its own
+copy of the constants and checks each plan's preconditions again, only to
+refuse a plan whose kernel would read out of bounds or misaligned.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, Sequence, Tuple
 
@@ -23,14 +46,54 @@ dcoord_launches = 0
 dvalue_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_LEVELS = 8  # kMaxLevels in msda_fwd.cu and msda_bwd.cu
+# as in csrc/msda_common.cuh: kMaxLevels, the variants (kMain, kGeneric), the
+# main path's (levels, points, channels) and kThreads
+_MAX_LEVELS = 8
+MAIN, GENERIC = 0, 1
+MAIN_SHAPE = (3, 4, 32)
+THREADS = 256  # per block
+_INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    variant: int     # MAIN or GENERIC
+    vec: int         # channels per load: 16 bytes' worth, or 1
+    lanes: int       # threads per (batch, query, head)
+    blocks: int      # of THREADS threads
+
+    @property
+    def lanes_log2(self) -> int:
+        return self.lanes.bit_length() - 1
+
+
+def launch_plan(value, sampling_locations, attention_weights, grad_out=None) -> LaunchPlan:
+    """The K1 (``grad_out`` None) or K2 instantiation and grid for these
+    tensors; reads only their shapes, dtypes and data pointers."""
+    b, len_in, nh, ch = value.shape
+    _, lq, _, nl, p, _ = sampling_locations.shape
+    vec16 = 16 // value.element_size()
+    tensors = [value, sampling_locations, attention_weights]
+    if grad_out is not None:
+        tensors.append(grad_out)
+    groups = b * lq * nh
+    if ((nl, p, ch) == MAIN_SHAPE and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and groups * (ch // vec16) <= _INT32_MAX and len_in * nh * ch <= _INT32_MAX):
+        variant, vec = MAIN, vec16
+    else:
+        variant, vec = GENERIC, 1
+    lanes = 1
+    while lanes < min(-(-ch // vec), 32):
+        lanes *= 2
+    return LaunchPlan(variant, vec, lanes, -(-groups * lanes // THREADS))
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     lib = cuda_build.load("msda_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p]
+    q = ctypes.c_longlong
+    lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, i, q, p]
     lib.msda_fwd.restype = ctypes.c_int
     return lib
 
@@ -39,7 +102,8 @@ def library() -> ctypes.CDLL:
 def bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load("msda_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msda_bwd_dcoord.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p]
+    q = ctypes.c_longlong
+    lib.msda_bwd_dcoord.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, i, q, p]
     lib.msda_bwd_dcoord.restype = ctypes.c_int
     lib.msda_bwd_dvalue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p]
     lib.msda_bwd_dvalue.restype = ctypes.c_int
@@ -57,6 +121,15 @@ def _check(value, spatial_shapes, sampling_locations, attention_weights,
         raise ValueError("the MSDA kernels need CUDA tensors")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("the MSDA kernels: tensors on different devices")
+    return _validate(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+
+
+def _validate(value, spatial_shapes, sampling_locations, attention_weights,
+              grad_out=None) -> List[int]:
+    """The checks of ``_check`` that do not depend on the device."""
+    tensors = [value, sampling_locations, attention_weights]
+    if grad_out is not None:
+        tensors.append(grad_out)
     if value.dtype not in _DTYPE_CODES or attention_weights.dtype not in _DTYPE_CODES:
         raise TypeError(
             f"value/attention dtypes must be float32 or bfloat16, got "
@@ -102,13 +175,15 @@ def ms_deform_attn_cuda(
     hws = _check(value, spatial_shapes, sampling_locations, attention_weights)
     b, len_in, nh, ch = value.shape
     _, lq, _, nl, p, _ = sampling_locations.shape
+    plan = launch_plan(value, sampling_locations, attention_weights)
     out = torch.empty((b, lq, nh * ch), dtype=value.dtype, device=value.device)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = library().msda_fwd(
         value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[value.dtype], _DTYPE_CODES[attention_weights.dtype],
-        b, len_in, lq, nh, ch, nl, p, (ctypes.c_int * len(hws))(*hws), stream,
+        b, len_in, lq, nh, ch, nl, p, (ctypes.c_int * len(hws))(*hws),
+        plan.variant, plan.lanes_log2, plan.blocks, stream,
     )
     if err != 0:
         raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {err}")
@@ -117,13 +192,12 @@ def ms_deform_attn_cuda(
 
 
 def _bwd_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out):
+    """The dtype codes, extents and level table of both backward kernels."""
     hws = _check(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
     b, len_in, nh, ch = value.shape
     _, lq, _, nl, p, _ = sampling_locations.shape
-    dims = (_DTYPE_CODES[value.dtype], _DTYPE_CODES[attention_weights.dtype],
-            b, len_in, lq, nh, ch, nl, p, (ctypes.c_int * len(hws))(*hws),
-            torch.cuda.current_stream(value.device).cuda_stream)
-    return dims
+    return (_DTYPE_CODES[value.dtype], _DTYPE_CODES[attention_weights.dtype],
+            b, len_in, lq, nh, ch, nl, p, (ctypes.c_int * len(hws))(*hws))
 
 
 def msda_dcoord_cuda(value, spatial_shapes, sampling_locations, attention_weights,
@@ -131,11 +205,14 @@ def msda_dcoord_cuda(value, spatial_shapes, sampling_locations, attention_weight
     """K2: (dloc f32, dattn in the weights' dtype)."""
     global dcoord_launches
     dims = _bwd_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+    plan = launch_plan(value, sampling_locations, attention_weights, grad_out)
     dloc = torch.empty_like(sampling_locations)
     dattn = torch.empty_like(attention_weights)
     err = bwd_library().msda_bwd_dcoord(
         value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
         grad_out.data_ptr(), dloc.data_ptr(), dattn.data_ptr(), *dims,
+        plan.variant, plan.lanes_log2, plan.blocks,
+        torch.cuda.current_stream(value.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"msda_bwd_dcoord kernel launch failed: CUDA error {err}")
@@ -153,6 +230,7 @@ def msda_dvalue_cuda(value, spatial_shapes, sampling_locations, attention_weight
     err = bwd_library().msda_bwd_dvalue(
         sampling_locations.data_ptr(), attention_weights.data_ptr(),
         grad_out.data_ptr(), dvalue32.data_ptr(), *dims,
+        torch.cuda.current_stream(value.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"msda_bwd_dvalue kernel launch failed: CUDA error {err}")

@@ -7,8 +7,10 @@ Each round runs PARENT, CHANGE, CHANGE, PARENT, each in a fresh process that
 imports the port from its own directory, builds its kernels, warms up, and
 times 6 repetitions of ``chip_smoke.py``'s three full-width 10x384x640 bf16
 eval windows with CUDA events.  Prints one JSON line per process and, last,
-the median ms/window of each side.  The step is host-bound, so the first
-seconds of a machine and single repetitions can be far off: compare medians.
+each side's median, quartiles and minimum ms/window over all repetitions, and
+how many of the round's two (parent, change) process pairs the change won on
+its process median.  The host shares its cores, so whole processes can read
+10-40 % slow: compare quartiles and pairs, never single readings.
 """
 
 from __future__ import annotations
@@ -69,16 +71,27 @@ def main() -> int:
     parent, change = (os.path.abspath(t) for t in args.trees)
     here = os.path.abspath(__file__)
     results = {"parent": [], "change": []}
+    wins = pairs = 0
     for _ in range(args.rounds):
-        for side in ("parent", "change", "change", "parent"):
+        medians = {}
+        for order, side in enumerate(("parent", "change", "change", "parent")):
             tree = parent if side == "parent" else change
             out = subprocess.run([sys.executable, here, "--one"], cwd=tree, check=True,
                                  capture_output=True, text=True).stdout
             reps = json.loads(out.strip().splitlines()[-1])["ms_per_window"]
             results[side] += reps
+            medians[(side, order < 2)] = statistics.median(reps)
             print(json.dumps({"side": side, "ms_per_window": reps}), flush=True)
-    print(json.dumps({side: {"median_ms_per_window": statistics.median(v), "n": len(v)}
-                      for side, v in results.items()}), flush=True)
+        for first in (True, False):  # pairs (P, C) and (C, P) of the round
+            pairs += 1
+            wins += medians[("change", first)] < medians[("parent", first)]
+    summary = {}
+    for side, v in results.items():
+        q1, _, q3 = statistics.quantiles(v, n=4)
+        summary[side] = {"median_ms_per_window": statistics.median(v), "q1": q1, "q3": q3,
+                         "min": min(v), "n": len(v)}
+    summary["pairs"], summary["change_wins"] = pairs, wins
+    print(json.dumps(summary), flush=True)
     return 0
 
 
