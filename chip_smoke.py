@@ -14,9 +14,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      instantiation each takes
   3. K4 (batched Hungarian) against scipy and ``hungarian_plain``
   4. K2 / K3 (MSDA backward) against the plain backward at the train, eval
-     and one-level encoder shapes, f32 and bf16
+     and one-level encoder shapes, f32 and bf16, on random locations (K3's
+     direct adds for the big levels; the two small ones fit its bins whole),
+     with K3's plan and the share of its corner adds binned in shared memory
   5. K5 / K6 (shared-point sampler and its dValue) against the plain sampler
-     and its autograd at the three train shapes, bf16 and f32 maps, with
+     and its autograd at the three train shapes, bf16 and f32 maps, on
+     y-sorted points (K6's shared-memory bins where its tiles are dense), the
+     same shuffled (its direct adds) and y-sorted points on pixel centres and
+     the map's borders, with K6's plan and the share binned, and
      ``F.grid_sample`` and its backward timed as yardsticks
   6. the SimpleBaselineOnline-R50 eval path at full width (random weights from
      a seed, bf16): three 10x384x640 windows, with the kernels' launch counts
@@ -25,23 +30,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      masters, AdamW; one warm-up and three timed steps, with the launch counts
      of all six kernels, frozen parameters fixed and the encoder's
      sampling-offset weights moved
-  8b. K1 and K2 on the inputs the first encoder layer gave them in the warm-up
-     window of phase 6 and the warm-up step of phase 8, against the plain
-     versions, timed beside their bounds
+  8b. K1, K2 and K3 on the inputs the first encoder layer gave them in the
+     warm-up window of phase 6 and the warm-up step of phase 8, against the
+     plain versions, timed beside their bounds
   9. one f32 train-step loss and gradient on the card (kernels) against the
      CPU (plain) at 1x2x192x320, N=8, from the same weights and points
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6), its error
-against its plain version, its time, the plain time, the yardstick library
-time where one PyTorch call computes the same function, and its bound; the
-last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
+against its plain version, its time (``ms``: the wrapper's call from CUDA
+events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
+time, the yardstick library time where one PyTorch call computes the same
+function, and its bound; the last line is ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -115,6 +123,9 @@ SAMPLER_CASES = {  # name -> (batch, rows, H, W, points)
     "loss_candidates": (2, 40, 120, 216, 37632),
     "loss_random": (2, 40, 120, 216, 3136),
 }
+# the points' order in phase 5: K6 bins its adds in shared memory on y-sorted
+# points (dense tiles) and adds straight to the output on unsorted ones
+SAMPLER_POINTS = ("sorted", "unsorted", "border_centres")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -179,6 +190,27 @@ def time_cuda(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = TIMING_ITERS) -> float:
+    """Mean device time of one launch of the kernel whose name contains
+    ``kernel``, from ``torch.profiler``'s CUDA kernel events over ``iters``
+    calls of ``fn`` after warm-up: the kernel alone, without the wrapper's
+    host work or its other launches (zeroing, casts)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    # the profiler may drop an event at the edge of its window
+    if not iters // 2 <= len(us) <= iters:
+        raise AssertionError(f"the profiler saw {len(us)} launches of {kernel} in {iters} calls")
+    return sum(us) / len(us) / 1e3
+
+
 def bound(nbytes: float, flops: float):
     """(least ms, what bounds it) on an H100 SXM: bytes over HBM rate or f32
     operations over the f32 peak, whichever is larger."""
@@ -206,10 +238,16 @@ def phase_build():
     msda_cuda.bwd_library()
     hungarian_cuda.library()
     point_sample_cuda.library()
+    ptxas = {name: ptxas_report(log) for name, (_, log) in cuda_build.build_logs.items()}
+    scatter = [k for name in ("msda_bwd", "point_sample") for k in ptxas.get(name, [])
+               if "dvalue_kernel" in k["kernel"]]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": {k: v[0] for k, v in cuda_build.build_logs.items()},
-          "ptxas": {name: ptxas_report(log)
-                    for name, (_, log) in cuda_build.build_logs.items()}})
+          "compiled": {k: v[0] for k, v in cuda_build.build_logs.items()}, "ptxas": ptxas,
+          "k3_k6_instantiations": len(scatter),
+          # null where the libraries were built before this run
+          "k3_k6_stack_and_spill_free": all(
+              k.get("stack", 0) == 0 and k.get("spill_stores", 0) == 0 for k in scatter)
+          if scatter else None})
 
 
 def ptxas_report(log: str):
@@ -296,7 +334,10 @@ def phase_msda():
                 raise AssertionError(f"K1 disagrees with its plain version ({case}, {dtype})")
             worst = max(worst, max_abs)
             if case == "train_encoder" and dtype == torch.bfloat16:
-                main = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+                dev = device_ms(lambda: msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn),
+                                "msda_fwd_kernel")
+                main = {"ms": k_ms, "device_ms": dev, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by}
     return {"max_abs_err": worst, **main}
 
 
@@ -352,7 +393,10 @@ def phase_hungarian():
               "scipy_cpu_ms_per_batch": scipy_ms, "bound_ms": b_ms})
         worst = max(worst, max(errs))
         if name == "matcher_uniform":
-            main = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            dev = device_ms(lambda: hungarian_cuda.batched_hungarian_cuda(cost_dev),
+                            "hungarian_kernel")
+            main = {"ms": k_ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by}
     return {"max_abs_err": worst, **main}
 
 
@@ -364,6 +408,14 @@ def _check_close(got, ref, rel_to_max, rtol):
     ok = bool((diff <= rel_to_max * scale + rtol * ref.abs()).all())
     max_abs = diff.max().item()
     return ok, max_abs, max_abs / max(scale, 1e-30)
+
+
+def _k3_plan(value, levels, loc):
+    """K3's plan for these inputs and the share of its corner adds that go
+    through the shared-memory bins (computed on the host side, untimed)."""
+    plan = msda_cuda.dvalue_plan(value, loc)
+    return {"k3_plan": dataclasses.asdict(plan),
+            "k3_band_share": msda_cuda.band_share(levels, loc, plan)}
 
 
 def phase_msda_bwd():
@@ -394,9 +446,15 @@ def phase_msda_bwd():
             samples = _msda_in_range(levels, loc)
             k2_b = bound(nbytes(value, loc, attn, g, dloc, dattn), MSDA_FLOPS * samples * MSDA_CH)
             k3_b = bound(nbytes(loc, attn, g, dvalue), 9.0 * samples * MSDA_CH)
+            main = case == "train_encoder" and dtype == torch.bfloat16
+            if main:
+                k2_dev = device_ms(lambda: msda_cuda.msda_dcoord_cuda(value, levels, loc, attn, g),
+                                   "msda_dcoord_kernel")
+                k3_dev = device_ms(lambda: msda_cuda.msda_dvalue_cuda(value, levels, loc, attn, g),
+                                   "msda_dvalue_kernel")
             emit({"phase": "k2_k3_msda_bwd", "case": case, "batch": b, "levels": levels,
                   "dtype": str(dtype).replace("torch.", ""),
-                  "k2_plan": _plan(value, loc, attn, g),
+                  "k2_plan": _plan(value, loc, attn, g), **_k3_plan(value, levels, loc),
                   "errors": {k: {"within_tol": c[0], "max_abs_err": c[1],
                                  "max_err_rel_to_max": c[2]} for k, c in checks.items()},
                   "tol": {"rel_to_max": BWD_REL_TO_MAX, "rtol_f32_outputs": BWD_RTOL[torch.float32],
@@ -412,11 +470,11 @@ def phase_msda_bwd():
                                                     checks["dloc"][1], checks["dattn"][1])
             out["msda_dvalue"]["max_abs_err"] = max(out["msda_dvalue"]["max_abs_err"],
                                                     checks["dvalue"][1])
-            if case == "train_encoder" and dtype == torch.bfloat16:
-                out["msda_dcoord"].update(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b[0],
-                                          bound_by=k2_b[1])
-                out["msda_dvalue"].update(ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_b[0],
-                                          bound_by=k3_b[1])
+            if main:
+                out["msda_dcoord"].update(ms=k2_ms, device_ms=k2_dev, plain_ms=k2_plain,
+                                          bound_ms=k2_b[0], bound_by=k2_b[1])
+                out["msda_dvalue"].update(ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain,
+                                          bound_ms=k3_b[0], bound_by=k3_b[1])
     return out
 
 
@@ -468,10 +526,11 @@ def _bound_parts(nbytes_moved, flops):
 
 
 def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
-    """K1 and K2 on the inputs the first encoder layer gave them on the paths
-    (phases 6 and 8: a full-width eval window and train step), against the
-    plain versions with the tolerances of phases 2 and 4, timed beside their
-    bounds; returns the kernels line's recorded-input times."""
+    """K1, K2 and K3 on the inputs the first encoder layer gave them on the
+    paths (phases 6 and 8: a full-width eval window and train step; K3 takes
+    K2's inputs), against the plain versions with the tolerances of phases 2
+    and 4, timed beside their bounds; returns the kernels line's
+    recorded-input times."""
     out = {}
     for path, rec in (("eval", eval_rec), ("train", train_rec)):
         (value, levels, loc, attn), plan = rec.fwd
@@ -500,27 +559,36 @@ def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
     (value, levels, loc, attn, g), plan = train_rec.dcoord
     value, loc, attn, g = (t.to(DEVICE) for t in (value, loc, attn, g))
     dloc, dattn = msda_cuda.msda_dcoord_cuda(value, levels, loc, attn, g)
-    _, ref_loc, ref_attn = ms_deform_attn_bwd_plain(value, levels, loc, attn, g, dvalue=False)
+    dvalue = msda_cuda.msda_dvalue_cuda(value, levels, loc, attn, g)
+    ref_v, ref_loc, ref_attn = ms_deform_attn_bwd_plain(value, levels, loc, attn, g)
     torch.cuda.synchronize()
     checks = {"dloc": _check_close(dloc, ref_loc, BWD_REL_TO_MAX, BWD_RTOL[torch.float32]),
-              "dattn": _check_close(dattn, ref_attn, BWD_REL_TO_MAX, BWD_RTOL[attn.dtype])}
+              "dattn": _check_close(dattn, ref_attn, BWD_REL_TO_MAX, BWD_RTOL[attn.dtype]),
+              "dvalue": _check_close(dvalue, ref_v, BWD_REL_TO_MAX, BWD_RTOL[value.dtype])}
     k2_ms = time_cuda(lambda: msda_cuda.msda_dcoord_cuda(value, levels, loc, attn, g))
     k3_ms = time_cuda(lambda: msda_cuda.msda_dvalue_cuda(value, levels, loc, attn, g))
+    k3_dev = device_ms(lambda: msda_cuda.msda_dvalue_cuda(value, levels, loc, attn, g),
+                       "msda_dvalue_kernel")
     moved = nbytes(value, loc, attn, g, dloc, dattn)
     flops = MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH
     b_ms, b_by = bound(moved, flops)
-    emit({"phase": "k2_recorded_inputs", "path": "train", "layer": 0,
+    k3_b = bound(nbytes(loc, attn, g, dvalue), 9.0 * _msda_in_range(levels, loc) * MSDA_CH)
+    emit({"phase": "k2_k3_recorded_inputs", "path": "train", "layer": 0,
           "batch": value.shape[0], "levels": levels,
           "dtypes": [str(t.dtype).replace("torch.", "") for t in (value, loc, attn, g)],
-          "plan": plan, "on_pixel_centres": _on_pixel_centres(levels, loc),
+          "plan": plan, **_k3_plan(value, levels, loc),
+          "on_pixel_centres": _on_pixel_centres(levels, loc),
           "errors": {k: {"within_tol": c[0], "max_abs_err": c[1], "max_err_rel_to_max": c[2]}
                      for k, c in checks.items()},
           "tol": {"rel_to_max": BWD_REL_TO_MAX, "rtol_f32_outputs": BWD_RTOL[torch.float32],
-                  "rtol_outputs_in_dtype": BWD_RTOL[attn.dtype]},
+                  "rtol_outputs_in_dtype": BWD_RTOL[attn.dtype],
+                  "rtol_dvalue": BWD_RTOL[value.dtype]},
           "k2_ms": k2_ms, "k2_bound_ms": b_ms, "k2_bound_by": b_by, "k3_ms": k3_ms,
+          "k3_device_ms": k3_dev, "k3_bound_ms": k3_b[0], "k3_bound_by": k3_b[1],
           **{f"k2_{k}": v for k, v in _bound_parts(moved, flops).items()}})
     if not all(c[0] for c in checks.values()):
-        raise AssertionError("K2 disagrees with the plain backward on the train inputs")
+        raise AssertionError("K2/K3 disagree with the plain backward on the train inputs")
+    out["msda_dvalue"] = {"recorded_train_ms": k3_ms, "recorded_train_device_ms": k3_dev}
     out["msda_dcoord"] = {"recorded_train_ms": k2_ms}
     return out
 
@@ -532,17 +600,38 @@ def _grid_sample(maps, coords):
                          align_corners=False)[:, :, 0]
 
 
+def _sampler_points(kind, gen, b, h, w, p):
+    """(B, P, 2) points: ``sorted`` by y as the criterion draws them;
+    ``unsorted``, the same shuffled; ``border_centres``, a third of them on
+    pixel centres (x from -1 to W-1 and y from -1 to H-1 in pixels) and a
+    third on the borders x = -1 and x = W-1, then sorted by y."""
+    pts = sorted_uniform_points(gen, (b,), p)
+    if kind == "unsorted":
+        return pts[:, torch.randperm(p, device=DEVICE, generator=gen)].contiguous()
+    if kind == "border_centres":
+        n = p // 3
+        px = torch.randint(-1, w, (b, n), device=DEVICE, generator=gen).float()
+        py = torch.randint(-1, h, (b, n), device=DEVICE, generator=gen).float()
+        pts[:, :n, 0] = (px + 0.5) / w
+        pts[:, :n, 1] = (py + 0.5) / h
+        side = torch.rand(b, n, device=DEVICE, generator=gen) < 0.5
+        pts[:, n:2 * n, 0] = torch.where(side, -0.5 / w, (w - 0.5) / w)
+        order = pts[..., 1].argsort(dim=-1)
+        pts = torch.gather(pts, 1, order[..., None].expand(b, p, 2)).contiguous()
+    return pts
+
+
 def phase_sampler():
     """K5 and K6 against the plain sampler and its autograd; returns their
-    JSON fields at the loss-candidate shape with bf16 maps (the AMP train
-    step)."""
+    JSON fields at the loss-candidate shape with bf16 maps and sorted points
+    (the AMP train step)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     out = {"point_sample_fwd": {"max_abs_err": 0.0},
            "point_sample_dvalue": {"max_abs_err": 0.0}}
-    for case, (b, r, h, w, p) in SAMPLER_CASES.items():
+    for (case, (b, r, h, w, p)), kind in itertools.product(SAMPLER_CASES.items(), SAMPLER_POINTS):
         for dtype in (torch.bfloat16, torch.float32):
             maps = (torch.randn(b, r, h, w, device=DEVICE, generator=gen) * 4).to(dtype)
-            coords = sorted_uniform_points(gen, (b,), p)
+            coords = _sampler_points(kind, gen, b, h, w, p)
             g = torch.randn(b, r, p, device=DEVICE, generator=gen)
             got = point_sample_cuda.point_sample_fwd_cuda(maps, coords)
             ref = sample_maps_shared_plain(maps, coords, f32_policy=True)
@@ -551,6 +640,8 @@ def phase_sampler():
             torch.cuda.synchronize()
             fwd = _check_close(got, ref, SAMPLER_REL_TO_MAX, SAMPLER_RTOL)
             bwd = _check_close(dgot, dref, BWD_REL_TO_MAX, BWD_RTOL[dtype])
+            plan = point_sample_cuda.dvalue_plan(maps.shape, p)
+            share = point_sample_cuda.band_share(coords, maps.shape, plan)
             k5_ms = time_cuda(lambda: point_sample_cuda.point_sample_fwd_cuda(maps, coords))
             k6_ms = time_cuda(lambda: point_sample_cuda.point_sample_dvalue_cuda(
                 coords, g, maps.shape, maps.dtype))
@@ -566,31 +657,37 @@ def phase_sampler():
                     torch.autograd.grad(_grid_sample(m32, coords), (m32,), g)
 
             lib_bwd_ms = time_cuda(lib_bwd)
-            emit({"phase": "k5_k6_point_sample", "case": case, "maps": [b, r, h, w],
-                  "points": p, "dtype": str(dtype).replace("torch.", ""),
+            emit({"phase": "k5_k6_point_sample", "case": case, "points_order": kind,
+                  "maps": [b, r, h, w], "points": p, "dtype": str(dtype).replace("torch.", ""),
                   "k5": {"within_tol": fwd[0], "max_abs_err": fwd[1], "max_err_rel_to_max": fwd[2]},
                   "k6": {"within_tol": bwd[0], "max_abs_err": bwd[1], "max_err_rel_to_max": bwd[2]},
                   "tol": {"k5_rel_to_max": SAMPLER_REL_TO_MAX, "k5_rtol": SAMPLER_RTOL,
                           "k6_rel_to_max": BWD_REL_TO_MAX, "k6_rtol": BWD_RTOL[dtype]},
+                  "k6_plan": dataclasses.asdict(plan), "k6_band_share": share,
                   "k5_ms": k5_ms, "k6_ms": k6_ms, "k5_plain_ms": k5_plain,
                   "k6_plain_ms": k6_plain, "grid_sample_ms": lib_fwd,
                   "grid_sample_backward_ms": lib_bwd_ms})
             if not (fwd[0] and bwd[0]):
-                raise AssertionError(f"K5/K6 disagree with the plain sampler ({case}, {dtype})")
+                raise AssertionError(f"K5/K6 disagree with the plain sampler ({case}, {kind}, {dtype})")
             out["point_sample_fwd"]["max_abs_err"] = max(out["point_sample_fwd"]["max_abs_err"], fwd[1])
             out["point_sample_dvalue"]["max_abs_err"] = max(
                 out["point_sample_dvalue"]["max_abs_err"], bwd[1])
-            if case == "loss_candidates" and dtype == torch.bfloat16:
+            if case == "loss_candidates" and kind == "sorted" and dtype == torch.bfloat16:
                 x = coords[..., 0] * w - 0.5
                 y = coords[..., 1] * h - 0.5
                 inside = int(((x > -1) & (y > -1) & (x < w) & (y < h)).sum()) * r
                 k5_b = bound(nbytes(maps, coords, got), 12.0 * inside)
                 k6_b = bound(nbytes(coords, g, dgot), 8.0 * inside)
-                out["point_sample_fwd"].update(ms=k5_ms, plain_ms=k5_plain, library_ms=lib_fwd,
-                                               bound_ms=k5_b[0], bound_by=k5_b[1])
-                out["point_sample_dvalue"].update(ms=k6_ms, plain_ms=k6_plain,
-                                                  library_ms=lib_bwd_ms,
-                                                  bound_ms=k6_b[0], bound_by=k6_b[1])
+                k5_dev = device_ms(lambda: point_sample_cuda.point_sample_fwd_cuda(maps, coords),
+                                   "point_sample_fwd_kernel")
+                k6_dev = device_ms(lambda: point_sample_cuda.point_sample_dvalue_cuda(
+                    coords, g, maps.shape, maps.dtype), "point_sample_dvalue_kernel")
+                out["point_sample_fwd"].update(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain,
+                                               library_ms=lib_fwd, bound_ms=k5_b[0],
+                                               bound_by=k5_b[1])
+                out["point_sample_dvalue"].update(ms=k6_ms, device_ms=k6_dev, plain_ms=k6_plain,
+                                                  library_ms=lib_bwd_ms, bound_ms=k6_b[0],
+                                                  bound_by=k6_b[1])
     return out
 
 
@@ -911,6 +1008,7 @@ def main() -> int:
          "replaces": replaces, "launches": train_launches[name],
          "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name]},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
+         "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],
          "bound_by": fields[name]["bound_by"],
          "library_ms": fields[name].get("library_ms"),

@@ -34,10 +34,40 @@
 //     the generic instantiation, at scalar width with int64 offsets, takes
 //     every other shape and the main shape where a pointer is not 16-byte
 //     aligned.
-// K3 scatters: one thread per (b, q, head, channel) adds into an f32 scratch
-// (zeroed by the caller) with atomicAdd, so its summation order changes from
-// run to run; the caller casts to the value's dtype. Its bound is atomic
-// throughput as much as bytes.
+// K3 scatters into an f32 scratch that the caller zeroed (and casts to the
+// value's dtype), so its summation order changes from run to run. One f32
+// atomic per (b, q, head, channel, sample, corner) into L2 is paced by L2
+// atomic throughput (~0.7 GB of reduction payload per train-shape call for
+// 34 MB of compulsory bytes), not by HBM. The TPU's dValue kernel is
+// output-stationary (it walks the query blocks that touch one block of value
+// rows); the GPU's counterpart is privatisation. K3's design:
+//   * a block is (b, head, a run of tile_queries consecutive queries). The
+//     encoder's queries are its pixels, level by level, so a run is a strip
+//     of one level, and its samples (reference point plus a few pixels of
+//     offset) land in a strip of rows of each level;
+//   * the tile's output gradient (its queries' channels of the block's head)
+//     is staged in shared memory in f32, once;
+//   * per level, each sample of the tile is worked out once, by one thread,
+//     into a shared table (corner offset, a mask of the corners inside, four
+//     bilinear weights times the attention weight), and a block min/max
+//     gives the rows its corners touch (the band);
+//   * a level whose band's pixels fit the plan's band_pixels is privatised:
+//     the tile's corner adds are binned by band pixel in shared memory
+//     (scatter_common.cuh: native int atomics, since sm_90's shared f32
+//     atomic add is a compare-and-swap loop), then K2's lane groups take the
+//     band's pixels, `lanes` lanes of VEC = 4 channels per pixel, each lane
+//     summing its channels over the pixel's adds in registers and adding
+//     them to the scratch with one 16-byte reduction (red.global.add.v4.f32):
+//     one add per touched pixel and channel, 8 lanes covering a pixel's 128
+//     contiguous bytes. A level that does not fit adds straight to the
+//     scratch, a group per (query, head) and one 16-byte reduction per lane
+//     and corner;
+//   * the level table is a __grid_constant__ parameter, as in K1 and K2: no
+//     stack;
+//   * right for any locations: random ones make bands as tall as the level,
+//     which take the direct adds. The plan (vec, lanes, tile_queries,
+//     band_pixels) is made by ops/msda_cuda.py::dvalue_plan; this side
+//     refuses one that would overrun shared memory or the grid.
 // Both: coordinates, bilinear weights and every sum are f32, and the pixel
 // coordinate is msda::pixel's (two roundings), so a point on a pixel centre
 // takes the plain version's one-sided slope; at x = -1 (or y = -1) the slope
@@ -48,11 +78,22 @@
 // the map contributes nothing, and d(pixel)/d(loc) is the level's width (x) or
 // height (y).
 
+#include <limits.h>
+
 #include "msda_common.cuh"
+#include "scatter_common.cuh"
 
 namespace {
 
 using namespace msda;
+
+// K3's plan limits, as in ops/msda_cuda.py
+constexpr int kDvTableBytes = 24;  // per sample: four weights, corner offset, corner mask
+constexpr int kDvListBytes = 16;   // per sample: four binned-list entries
+constexpr int kDvMaxEntries = 1 << 16;  // a list entry's low 16 bits: 4 x sample + corner
+// dynamic shared memory a block may use on sm_90 (227 KB), less 1 KB for the
+// kernel's static shared variables
+constexpr int kMaxSmem = 232448 - 1024;
 
 // One sample's bilinear fractions and its corners (y0,x0), (y0,x0+1),
 // (y0+1,x0), (y0+1,x0+1): inside the map or not, and the pixel offset from
@@ -199,54 +240,189 @@ __global__ void __launch_bounds__(kThreads) msda_dcoord_kernel(
   }
 }
 
-// K3: one thread per (b, q, head, channel), scattering into dvalue (f32).
-template <typename V, typename A>
-__global__ void __launch_bounds__(kThreads) msda_dvalue_kernel(
-    const float* __restrict__ loc, const A* __restrict__ attn,
-    const V* __restrict__ grad, float* __restrict__ dvalue,
-    int64_t total, int len_in, int len_q, int n_heads, int channels,
-    int n_points, Levels lv) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % channels);
-  const int64_t bqh = idx / channels;
-  const int head = (int)(bqh % n_heads);
-  const int64_t b = bqh / n_heads / len_q;
+// K3's dynamic shared memory, in this order: the sample table (float4
+// weights, then int2 corner offset and mask) padded to 16 bytes, the tile's
+// output gradient in f32 (padded to 4 floats), the binned list (4 ints per
+// sample), then the band's bins (band_pixels + 1 list offsets, band_pixels
+// cursors).
+__host__ __device__ inline int64_t dv_table_bytes(int64_t n_tab) {
+  return (n_tab * kDvTableBytes + 15) & ~(int64_t)15;
+}
+__host__ __device__ inline int64_t dv_grad_floats(int64_t tile_queries, int64_t channels) {
+  return (tile_queries * channels + 3) & ~(int64_t)3;
+}
+inline int64_t dv_smem_bytes(int64_t tile_queries, int64_t n_points, int64_t channels,
+                             int64_t band_pixels) {
+  const int64_t n_tab = tile_queries * n_points;
+  return dv_table_bytes(n_tab) + 4 * dv_grad_floats(tile_queries, channels) +
+         kDvListBytes * n_tab + 4 * (2 * band_pixels + 1);
+}
 
+// K3: one block per (query tile, head, b).  The tile's output gradient is
+// staged in shared memory once.  Per level: the table pass puts each sample
+// of the tile in shared memory once (four bilinear weights times the
+// attention weight, the corner offset and a mask of the corners inside) and
+// finds the rows its corners touch.  If the band of those rows fits
+// band_pixels, the corner adds are binned by band pixel (scatter_common.cuh)
+// and a group of `lanes` lanes per band pixel sums its adds, VEC channels a
+// lane, and adds them to dvalue with one 16-byte reduction a lane; otherwise
+// a group per (query, head) adds each corner straight to dvalue, one 16-byte
+// reduction a lane.  An entry of the binned list is (query << 16) | (4 x
+// sample + corner).
+template <typename V, typename A, int VEC>
+__global__ void __launch_bounds__(kThreads) msda_dvalue_kernel(
+    const float* __restrict__ loc,  // (B, len_q, n_heads, n_levels, n_points, 2)
+    const A* __restrict__ attn,     // (B, len_q, n_heads, n_levels, n_points)
+    const V* __restrict__ grad,     // (B, len_q, n_heads * channels)
+    float* __restrict__ dvalue,     // (B, len_in, n_heads, channels), zeroed
+    int len_in, int len_q, int n_heads, int channels, int n_points, int lanes_log2,
+    int tile_queries, int band_pixels, const __grid_constant__ Levels lv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_tab = tile_queries * n_points;
+  float4* s_w = reinterpret_cast<float4*>(smem);
+  int2* s_oc = reinterpret_cast<int2*>(s_w + n_tab);
+  float* s_g = reinterpret_cast<float*>(smem + dv_table_bytes(n_tab));
+  int* s_list = reinterpret_cast<int*>(s_g + dv_grad_floats(tile_queries, channels));
+  int* s_beg = s_list + 4 * n_tab;
+  int* s_cur = s_beg + band_pixels + 1;
+  __shared__ int s_lo[2], s_hi[2], s_warp[kThreads / 32];  // bounds by level parity
+
+  const int q0 = blockIdx.x * tile_queries;
+  const int nq = min(tile_queries, len_q - q0);
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lanes = 1 << lanes_log2;
+  const int group = threadIdx.x >> lanes_log2;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int groups = kThreads >> lanes_log2;
+  const int pix = n_heads * channels;  // stride of one pixel in dvalue
   const int n_samples = lv.n * n_points;
-  const float* lp = loc + bqh * n_samples * 2;
-  const A* ap = attn + bqh * n_samples;
-  const float g = to_f32(grad[idx]);
-  const int64_t pix = (int64_t)n_heads * channels;
-  float* db = dvalue + b * len_in * pix + (int64_t)head * channels + c;
+  const int64_t bq0 = (int64_t)b * len_q + q0;
+  float* dv_b = dvalue + (int64_t)b * len_in * pix + head * channels;
+  for (int e = threadIdx.x; e < nq * channels; e += kThreads) {
+    const int qi = e / channels;
+    s_g[e] = to_f32(grad[((bq0 + qi) * n_heads + head) * channels + (e - qi * channels)]);
+  }
+  if (threadIdx.x == 0) {
+    s_lo[0] = INT_MAX;
+    s_hi[0] = -1;
+  }
 
   for (int l = 0; l < lv.n; ++l) {
     const int H = lv.h[l];
     const int W = lv.w[l];
-    float* dl = db + (int64_t)lv.start[l] * pix;
-    for (int pt = 0; pt < n_points; ++pt) {
-      const int k = l * n_points + pt;
-      const float x = pixel(lp[2 * k], W);
-      const float y = pixel(lp[2 * k + 1], H);
-      if (!(x > -1.f && y > -1.f && x < (float)W && y < (float)H)) continue;
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const float fx = x - x0f;
-      const float fy = y - y0f;
-      const float gx = 1.f - fx;
-      const float gy = 1.f - fy;
-      const float ag = to_f32(ap[k]) * g;
-      if (y0 >= 0) {
-        float* r = dl + (int64_t)y0 * W * pix;
-        if (x0 >= 0) atomicAdd(r + (int64_t)x0 * pix, gy * gx * ag);
-        if (x0 + 1 < W) atomicAdd(r + (int64_t)(x0 + 1) * pix, gy * fx * ag);
+    __syncthreads();  // the last level is done with the table and the bins
+    int lo = INT_MAX, hi = -1;
+    for (int s = threadIdx.x; s < nq * n_points; s += kThreads) {
+      const int qi = s / n_points;
+      const int k = l * n_points + (s - qi * n_points);
+      const int64_t bqh = (bq0 + qi) * n_heads + head;
+      const float x = pixel(__ldg(loc + (bqh * n_samples + k) * 2), W);
+      const float y = pixel(__ldg(loc + (bqh * n_samples + k) * 2 + 1), H);
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      int2 oc = make_int2(0, 0);
+      if (x > -1.f && y > -1.f && x < (float)W && y < (float)H) {
+        const float x0f = floorf(x);
+        const float y0f = floorf(y);
+        const int x0 = (int)x0f;
+        const int y0 = (int)y0f;
+        const float fx = x - x0f;
+        const float fy = y - y0f;
+        const float gx = 1.f - fx;
+        const float gy = 1.f - fy;
+        const float a = to_f32(attn[bqh * n_samples + k]);
+        w = make_float4(gy * gx * a, gy * fx * a, fy * gx * a, fy * fx * a);
+        oc.x = y0 * W + x0;
+        oc.y = (y0 >= 0 && x0 >= 0 ? 1 : 0) | (y0 >= 0 && x0 + 1 < W ? 2 : 0) |
+               (y0 + 1 < H && x0 >= 0 ? 4 : 0) | (y0 + 1 < H && x0 + 1 < W ? 8 : 0);
+        lo = min(lo, max(y0, 0));
+        hi = max(hi, min(y0 + 1, H - 1));
       }
-      if (y0 + 1 < H) {
-        float* r = dl + (int64_t)(y0 + 1) * W * pix;
-        if (x0 >= 0) atomicAdd(r + (int64_t)x0 * pix, fy * gx * ag);
-        if (x0 + 1 < W) atomicAdd(r + (int64_t)(x0 + 1) * pix, fy * fx * ag);
+      s_w[s] = w;
+      s_oc[s] = oc;
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMin(&s_lo[l & 1], lo);
+      atomicMax(&s_hi[l & 1], hi);
+    }
+    __syncthreads();
+    lo = s_lo[l & 1];
+    hi = s_hi[l & 1];
+    if (threadIdx.x == 0) {
+      s_lo[(l + 1) & 1] = INT_MAX;
+      s_hi[(l + 1) & 1] = -1;
+    }
+    if (hi < lo) continue;  // no sample of the tile has a corner in this level
+
+    const int shift = lo * W;
+    const int n_pix = (hi - lo + 1) * W;  // the band: rows lo .. hi of the level
+    float* dv_l = dv_b + (int64_t)lv.start[l] * pix;
+    if (n_pix <= band_pixels) {
+      scatter::bin_entries(
+          4 * nq * n_points, n_pix,
+          [&](int e) {
+            const int2 oc = s_oc[e >> 2];
+            const int k = e & 3;
+            return (oc.y >> k) & 1 ? oc.x + (k & 1) + (k >> 1) * W - shift : -1;
+          },
+          [&](int e) { return ((e >> 2) / n_points) << 16 | e; }, s_beg, s_cur, s_list, s_warp);
+      const float* wt = reinterpret_cast<const float*>(s_w);
+      for (int p = group; p < n_pix; p += groups) {
+        const int t0 = s_beg[p];
+        const int t1 = s_beg[p + 1];
+        if (t0 == t1) continue;  // no add lands on this pixel
+        float* out = dv_l + (int64_t)(shift + p) * pix;
+        for (int c0 = lane * VEC; c0 < channels; c0 += lanes * VEC) {
+          float acc[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+          for (int t = t0; t < t1; ++t) {
+            const int code = s_list[t];
+            const float w = wt[code & 0xffff];
+            const float* gq = s_g + (code >> 16) * channels + c0;
+            if constexpr (VEC == 4) {
+              const float4 gv = *reinterpret_cast<const float4*>(gq);
+              acc[0] += w * gv.x;
+              acc[1] += w * gv.y;
+              acc[2] += w * gv.z;
+              acc[3] += w * gv.w;
+            } else {
+              acc[0] += w * gq[0];
+            }
+          }
+          if constexpr (VEC == 4) {
+            scatter::red_add_v4(out + c0, make_float4(acc[0], acc[1], acc[2], acc[3]));
+          } else {
+            atomicAdd(out + c0, acc[0]);
+          }
+        }
+      }
+    } else {
+      for (int qi = group; qi < nq; qi += groups) {
+        for (int c0 = lane * VEC; c0 < channels; c0 += lanes * VEC) {
+          const float* gq = s_g + qi * channels + c0;
+          float g[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) g[i] = gq[i];
+          for (int pt = 0; pt < n_points; ++pt) {
+            const float4 w4 = s_w[qi * n_points + pt];
+            const int2 oc = s_oc[qi * n_points + pt];
+            const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (!((oc.y >> k) & 1)) continue;
+              float* d = dv_l + (int64_t)(oc.x + (k & 1) + (k >> 1) * W) * pix + c0;
+              if constexpr (VEC == 4) {
+                scatter::red_add_v4(d, make_float4(wk[k] * g[0], wk[k] * g[1], wk[k] * g[2],
+                                                   wk[k] * g[3]));
+              } else {
+                atomicAdd(d, wk[k] * g[0]);
+              }
+            }
+          }
+        }
       }
     }
   }
@@ -285,15 +461,40 @@ int launch_dcoord(const void* value, const float* loc, const void* attn,
   return (int)cudaGetLastError();
 }
 
+template <typename V, typename A, int VEC>
+int launch_dvalue(const float* loc, const void* attn, const void* grad, float* dvalue,
+                  const dim3& grid, int smem, int len_in, int len_q, int n_heads,
+                  int channels, int n_points, int lanes_log2, int tile_queries,
+                  int band_pixels, const Levels& lv, cudaStream_t stream) {
+  // above 48 KB of shared memory, static and dynamic together, a kernel
+  // must opt in: once, to the most a plan may ask
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        msda_dvalue_kernel<V, A, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  msda_dvalue_kernel<V, A, VEC><<<grid, kThreads, (size_t)smem, stream>>>(
+      loc, static_cast<const A*>(attn), static_cast<const V*>(grad), dvalue, len_in, len_q,
+      n_heads, channels, n_points, lanes_log2, tile_queries, band_pixels, lv);
+  return (int)cudaGetLastError();
+}
+
 template <typename V, typename A>
-void launch_dvalue(const float* loc, const void* attn, const void* grad,
-                   float* dvalue, int64_t total, int len_in, int len_q,
-                   int n_heads, int channels, int n_points, const Levels& lv,
-                   cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  msda_dvalue_kernel<V, A><<<blocks, kThreads, 0, stream>>>(
-      loc, static_cast<const A*>(attn), static_cast<const V*>(grad), dvalue,
-      total, len_in, len_q, n_heads, channels, n_points, lv);
+int launch_dvalue(const float* loc, const void* attn, const void* grad, float* dvalue,
+                  int vec, const dim3& grid, int smem, int len_in, int len_q, int n_heads,
+                  int channels, int n_points, int lanes_log2, int tile_queries,
+                  int band_pixels, const Levels& lv, cudaStream_t stream) {
+  if (vec == 4 && channels % 4 == 0 && aligned16(dvalue))
+    return launch_dvalue<V, A, 4>(loc, attn, grad, dvalue, grid, smem, len_in, len_q, n_heads,
+                                  channels, n_points, lanes_log2, tile_queries, band_pixels, lv,
+                                  stream);
+  if (vec == 1)
+    return launch_dvalue<V, A, 1>(loc, attn, grad, dvalue, grid, smem, len_in, len_q, n_heads,
+                                  channels, n_points, lanes_log2, tile_queries, band_pixels, lv,
+                                  stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -334,29 +535,38 @@ extern "C" int msda_bwd_dcoord(const void* value, const void* loc,
 }
 
 // dvalue is an f32 (B, len_in, n_heads, channels) buffer the caller zeroed.
+// vec (4 or 1), lanes_log2, tile_queries and band_pixels come from
+// dvalue_plan (ops/msda_cuda.py).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan that would overrun shared
+// memory, the grid or the binned list's 16-bit fields, or write misaligned.
 extern "C" int msda_bwd_dvalue(const void* loc, const void* attn,
                                const void* grad, void* dvalue, int value_dtype,
                                int attn_dtype, int batch, int len_in, int len_q,
                                int n_heads, int channels, int n_levels,
-                               int n_points, const int* level_hws,
+                               int n_points, const int* level_hws, int vec,
+                               int lanes_log2, int tile_queries, int band_pixels,
                                void* stream) {
   Levels lv;
   if (!fill_levels(&lv, n_levels, level_hws)) return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)batch * len_q * n_heads * channels;
-  if (total == 0) return 0;
+  if ((int64_t)batch * len_q * n_heads * channels == 0) return 0;
+  const int64_t smem = dv_smem_bytes(tile_queries, n_points, channels, band_pixels);
+  if (lanes_log2 < 0 || lanes_log2 > 5 || tile_queries < 1 || n_points < 1 ||
+      band_pixels < 0 || smem > kMaxSmem || 4 * (int64_t)tile_queries * n_points > kDvMaxEntries ||
+      n_heads > 65535 || batch > 65535 || (int64_t)len_in * n_heads * channels > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(((int64_t)len_q + tile_queries - 1) / tile_queries),
+                  (unsigned)n_heads, (unsigned)batch);
   const float* l = static_cast<const float*>(loc);
   float* dv = static_cast<float*>(dvalue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_dtype == 0 && attn_dtype == 0) {
-    launch_dvalue<float, float>(l, attn, grad, dv, total, len_in, len_q, n_heads, channels, n_points, lv, s);
+    return launch_dvalue<float, float>(l, attn, grad, dv, vec, grid, (int)smem, len_in, len_q, n_heads, channels, n_points, lanes_log2, tile_queries, band_pixels, lv, s);
   } else if (value_dtype == 0 && attn_dtype == 1) {
-    launch_dvalue<float, __nv_bfloat16>(l, attn, grad, dv, total, len_in, len_q, n_heads, channels, n_points, lv, s);
+    return launch_dvalue<float, __nv_bfloat16>(l, attn, grad, dv, vec, grid, (int)smem, len_in, len_q, n_heads, channels, n_points, lanes_log2, tile_queries, band_pixels, lv, s);
   } else if (value_dtype == 1 && attn_dtype == 0) {
-    launch_dvalue<__nv_bfloat16, float>(l, attn, grad, dv, total, len_in, len_q, n_heads, channels, n_points, lv, s);
+    return launch_dvalue<__nv_bfloat16, float>(l, attn, grad, dv, vec, grid, (int)smem, len_in, len_q, n_heads, channels, n_points, lanes_log2, tile_queries, band_pixels, lv, s);
   } else if (value_dtype == 1 && attn_dtype == 1) {
-    launch_dvalue<__nv_bfloat16, __nv_bfloat16>(l, attn, grad, dv, total, len_in, len_q, n_heads, channels, n_points, lv, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_dvalue<__nv_bfloat16, __nv_bfloat16>(l, attn, grad, dv, vec, grid, (int)smem, len_in, len_q, n_heads, channels, n_points, lanes_log2, tile_queries, band_pixels, lv, s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

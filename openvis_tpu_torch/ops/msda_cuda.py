@@ -22,12 +22,19 @@ power of two up to 32); each lane owns ``vec`` consecutive channels, or every
 ``lanes * vec``-th run of them when the channels are more.  Outputs are fresh
 ``torch.empty`` tensors, which the caching allocator aligns to 512 bytes.
 
-The plan is made here, not in the C launchers, so that the choice can be
-tested without ``nvcc`` or a card (``tests/test_torch_port_msda_launch.py``),
-reported by ``chip_smoke.py``, and forced to time one instantiation against
-the other (``tools/torch_bench_msda_variants.py``).  The C side keeps its own
-copy of the constants and checks each plan's preconditions again, only to
-refuse a plan whose kernel would read out of bounds or misaligned.
+K3 has its own plan, ``dvalue_plan``: the channels per lane and the lanes
+per (batch, query, head), the queries of one block's tile and the most
+pixels a level's band may have to be binned in shared memory;
+``band_share`` says how much of a call's work the bins take.
+
+The plans are made here, not in the C launchers, so that the choice can be
+tested without ``nvcc`` or a card (``tests/test_torch_port_msda_launch.py``,
+``tests/test_torch_port_scatter_plan.py``), reported by ``chip_smoke.py``,
+and forced to time one instantiation or branch against the other
+(``tools/torch_bench_msda_variants.py``,
+``tools/torch_bench_scatter_variants.py``).  The C side keeps its own copy
+of the constants and checks each plan's preconditions again, only to refuse
+a plan whose kernel would read or write out of bounds or misaligned.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,6 +95,110 @@ def launch_plan(value, sampling_locations, attention_weights, grad_out=None) -> 
     return LaunchPlan(variant, vec, lanes, -(-groups * lanes // THREADS))
 
 
+# as in csrc/msda_bwd.cu: K3's table and binned-list bytes per sample, the
+# 16-bit fields of a list entry, and the most dynamic shared memory a block
+# may use on sm_90 (less 1 KB for static shared variables)
+DV_TABLE_BYTES = 24
+DV_LIST_BYTES = 16
+DV_MAX_ENTRIES = 1 << 16
+MAX_SMEM = 232448 - 1024
+# K3's choices: queries per block, a block's shared memory (six blocks fit
+# on an SM) and the least of it left to the band's bins (2047 pixels)
+DV_TILE_QUERIES = 64
+DV_SMEM_TARGET = 34 * 1024
+DV_MIN_BAND_BYTES = 16 * 1024
+# a level's band is binned only where it has at most this many pixels per
+# corner add of the tile (as for K6)
+DV_BIN_PIXELS_PER_ADD = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DValuePlan:
+    vec: int           # channels per lane and reduction: 4, or 1
+    lanes: int         # threads per (batch, query, head) or band pixel
+    tile_queries: int  # consecutive queries per block (one head)
+    band_pixels: int   # the most pixels a level's band may have to be binned
+    fixed_bytes: int   # the table, the gradient tile and the list
+
+    @property
+    def lanes_log2(self) -> int:
+        return self.lanes.bit_length() - 1
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.fixed_bytes + 4 * (2 * self.band_pixels + 1)
+
+    def grid(self, batch: int, len_q: int, n_heads: int):
+        return (-(-len_q // self.tile_queries), n_heads, batch)
+
+
+def _dv_fixed_bytes(tq: int, p: int, ch: int) -> int:
+    """csrc/msda_bwd.cu's dv_smem_bytes without the bins."""
+    return (-(-tq * p * DV_TABLE_BYTES // 16) * 16 + 4 * (-(-tq * ch // 4) * 4)
+            + DV_LIST_BYTES * tq * p)
+
+
+def dvalue_plan(value, sampling_locations, band_bytes: Optional[int] = None) -> DValuePlan:
+    """K3's plan for these shapes: 4 channels a lane where the channels are a
+    multiple of 4; DV_TILE_QUERIES queries a block (fewer if the table,
+    gradient tile and list would leave the bins less than
+    DV_MIN_BAND_BYTES of DV_SMEM_TARGET).
+    ``band_bytes`` (default: what DV_SMEM_TARGET leaves, and at most
+    DV_BIN_PIXELS_PER_ADD pixels per corner add) is the room of the band's
+    bins, 8 bytes a pixel; 0 sends every level straight to the output."""
+    ch = value.shape[3]
+    p = sampling_locations.shape[4]
+    vec = 4 if ch % 4 == 0 else 1
+    lanes = 1
+    while lanes < min(-(-ch // vec), 32):
+        lanes *= 2
+    tq = DV_TILE_QUERIES
+    while tq > 1 and (_dv_fixed_bytes(tq, p, ch) > DV_SMEM_TARGET - DV_MIN_BAND_BYTES
+                      or 4 * tq * p > DV_MAX_ENTRIES):
+        tq //= 2
+    fixed = _dv_fixed_bytes(tq, p, ch)
+    if fixed + 4 > MAX_SMEM or 4 * tq * p > DV_MAX_ENTRIES:
+        raise ValueError(f"K3 cannot take {p} points and {ch} channels in one block's shared memory")
+    if band_bytes is None:
+        band_bytes = min(DV_SMEM_TARGET - fixed, 4 + 8 * DV_BIN_PIXELS_PER_ADD * 4 * tq * p)
+    band_bytes = max(4, min(band_bytes, MAX_SMEM - fixed))
+    return DValuePlan(vec, lanes, tq, (band_bytes - 4) // 8, fixed)
+
+
+def band_share(spatial_shapes, sampling_locations, plan: DValuePlan) -> float:
+    """The share of K3's corner adds that go through the shared-memory bins
+    for these locations and this plan, by the kernel's rule (host side, any
+    device): a (batch, head, tile, level) is binned when its corner rows x
+    the level's width fit ``plan.band_pixels``."""
+    b, lq, nh = sampling_locations.shape[:3]
+    tq = plan.tile_queries
+    pad = -(-lq // tq) * tq - lq
+    total = band = 0.0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl].float()          # (B, Lq, nh, P, 2)
+        x = loc[..., 0] * float(w) - 0.5
+        y = loc[..., 1] * float(h) - 0.5
+        inside = (x > -1) & (y > -1) & (x < w) & (y < h)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        corners = (((y0 >= 0) & (x0 >= 0)).int() + ((y0 >= 0) & (x0 + 1 < w)).int()
+                   + ((y0 + 1 < h) & (x0 >= 0)).int() + ((y0 + 1 < h) & (x0 + 1 < w)).int())
+        corners = torch.where(inside, corners, 0)
+        lo = torch.where(inside, y0.clamp(min=0), float(h))
+        hi = torch.where(inside, (y0 + 1).clamp(max=h - 1), -1.0)
+
+        def tiles(t, v, reduce):  # (B, Lq, nh, P) -> (B, nh, tiles)
+            t = torch.nn.functional.pad(t.permute(0, 2, 3, 1), (0, pad), value=v)
+            return reduce(t.reshape(b, nh, t.shape[2], -1, tq), (2, 4))
+
+        lo = tiles(lo, float(h), torch.amin)
+        hi = tiles(hi, -1.0, torch.amax)
+        n = tiles(corners.double(), 0.0, torch.sum)
+        fits = (hi - lo + 1).clamp(min=0) * w <= plan.band_pixels
+        total += n.sum().item()
+        band += n[fits].sum().item()
+    return band / total if total else 0.0
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     lib = cuda_build.load("msda_fwd")
@@ -105,7 +216,7 @@ def bwd_library() -> ctypes.CDLL:
     q = ctypes.c_longlong
     lib.msda_bwd_dcoord.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, i, q, p]
     lib.msda_bwd_dcoord.restype = ctypes.c_int
-    lib.msda_bwd_dvalue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p]
+    lib.msda_bwd_dvalue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, i, i, i, p]
     lib.msda_bwd_dvalue.restype = ctypes.c_int
     return lib
 
@@ -222,14 +333,16 @@ def msda_dcoord_cuda(value, spatial_shapes, sampling_locations, attention_weight
 
 def msda_dvalue_cuda(value, spatial_shapes, sampling_locations, attention_weights,
                      grad_out) -> torch.Tensor:
-    """K3: dvalue in the value's dtype, from f32 atomics into a zeroed
-    scratch."""
+    """K3: dvalue in the value's dtype, from f32 adds (binned by band pixel
+    in shared memory and summed, or straight) into a zeroed scratch."""
     global dvalue_launches
     dims = _bwd_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+    plan = dvalue_plan(value, sampling_locations)
     dvalue32 = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     err = bwd_library().msda_bwd_dvalue(
         sampling_locations.data_ptr(), attention_weights.data_ptr(),
         grad_out.data_ptr(), dvalue32.data_ptr(), *dims,
+        plan.vec, plan.lanes_log2, plan.tile_queries, plan.band_pixels,
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     if err != 0:
