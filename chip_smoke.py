@@ -8,11 +8,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   0. device: refuses to run without CUDA; prints the card's name and power limit
   1. build: compiles the hand-written kernels from ``openvis_tpu_torch/csrc``,
      one ``nvcc`` per source, all at once; each kernel's registers, stack and
-     spills from ptxas
+     spills from ptxas, and whether the K3/K6 and the K4/K5 instantiations
+     are free of stack and spills
   2. K1 (MSDA forward) against ``ms_deform_attn_plain`` on the card, at the
      eval, above-the-TPU-gate, train and one-level shapes, with the
      instantiation each takes
-  3. K4 (batched Hungarian) against scipy and ``hungarian_plain``
+  3. K4 (batched Hungarian) against scipy (total cost) and ``hungarian_plain``
+     (the assignment, element for element) at the tracking and matcher
+     shapes, with its plan, each problem's Dijkstra steps, and the wrapper's
+     and the device's time per case
   4. K2 / K3 (MSDA backward) against the plain backward at the train, eval
      and one-level encoder shapes, f32 and bf16, on random locations (K3's
      direct adds for the big levels; the two small ones fit its bins whole),
@@ -21,15 +25,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      and its autograd at the three train shapes, bf16 and f32 maps, on
      y-sorted points (K6's shared-memory bins where its tiles are dense), the
      same shuffled (its direct adds) and y-sorted points on pixel centres and
-     the map's borders, with K6's plan and the share binned, and
-     ``F.grid_sample`` and its backward timed as yardsticks
+     the map's borders, with K5's and K6's plans and the share binned, and
+     ``F.grid_sample`` and its backward timed as yardsticks; K5's device time
+     and bound at each of the three shapes (bf16 maps, sorted points); then
+     K5 and K6 on points far outside the maps (beyond 2^31 pixels, infinite)
   6. the SimpleBaselineOnline-R50 eval path at full width (random weights from
-     a seed, bf16): three 10x384x640 windows, with the kernels' launch counts
+     a seed, bf16): three 10x384x640 windows, with the kernels' launch counts;
+     then K4 on the tracking costs of the warm-up window, held element for
+     element to ``hungarian_plain`` and timed against the window (its share
+     of the window)
   7. the same eval path in f32 on the card (kernels) against the CPU (plain)
   8. the train step at full width: 1x2x480x864, N=40, bf16 AMP with f32
      masters, AdamW; one warm-up and three timed steps, with the launch counts
-     of all six kernels, frozen parameters fixed and the encoder's
-     sampling-offset weights moved
+     of all six kernels (K5's also by call shape, which must be phase 5's
+     three), frozen parameters fixed and the encoder's sampling-offset
+     weights moved
   8b. K1, K2 and K3 on the inputs the first encoder layer gave them in the
      warm-up window of phase 6 and the warm-up step of phase 8, against the
      plain versions, timed beside their bounds
@@ -47,6 +57,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import itertools
@@ -241,13 +252,18 @@ def phase_build():
     ptxas = {name: ptxas_report(log) for name, (_, log) in cuda_build.build_logs.items()}
     scatter = [k for name in ("msda_bwd", "point_sample") for k in ptxas.get(name, [])
                if "dvalue_kernel" in k["kernel"]]
+    k4_k5 = [k for name in ("hungarian", "point_sample") for k in ptxas.get(name, [])
+             if "hungarian_" in k["kernel"] or "point_sample_fwd_kernel" in k["kernel"]]
+
+    def clean(kernels):  # null where the libraries were built before this run
+        if not kernels:
+            return None
+        return all(k.get("stack", 0) == 0 and k.get("spill_stores", 0) == 0 for k in kernels)
+
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": {k: v[0] for k, v in cuda_build.build_logs.items()}, "ptxas": ptxas,
-          "k3_k6_instantiations": len(scatter),
-          # null where the libraries were built before this run
-          "k3_k6_stack_and_spill_free": all(
-              k.get("stack", 0) == 0 and k.get("spill_stores", 0) == 0 for k in scatter)
-          if scatter else None})
+          "k3_k6_instantiations": len(scatter), "k3_k6_stack_and_spill_free": clean(scatter),
+          "k4_k5_instantiations": len(k4_k5), "k4_k5_stack_and_spill_free": clean(k4_k5)})
 
 
 def ptxas_report(log: str):
@@ -351,11 +367,20 @@ def _hungarian_costs(name, b, n, m, rng):
     return (rng.rand(b, n, m) * 5).astype(np.float32)
 
 
+def _k4_plan(n, m, b):
+    plan = hungarian_cuda.launch_plan(n, m)
+    return {"variant": {hungarian_cuda.WARP: "warp", hungarian_cuda.BLOCK: "block"}[plan.variant],
+            "blocks": b, "threads": plan.threads, "smem_bytes": plan.smem_bytes}
+
+
 def phase_hungarian():
-    """K4 against scipy and the plain loop; returns its JSON fields at the
-    matcher's shape (one launch per train step)."""
+    """K4 against scipy (total cost) and the plain loop (the assignment,
+    element for element: the kernel takes the same steps in the same f32
+    arithmetic), timed per case; returns its JSON fields at the matcher's
+    shape (one launch per train step), with every case's times under
+    ``cases``."""
     rng = np.random.RandomState(SEED)
-    worst, main = 0.0, None
+    worst, main, cases = 0.0, None, {}
     for name, (b, n, m) in HUNGARIAN_CASES.items():
         cost = _hungarian_costs(name, b, n, m, rng)
         cost_dev = torch.from_numpy(cost).to(DEVICE)
@@ -373,31 +398,35 @@ def phase_hungarian():
             errs.append(abs(total - best))
         # the plain loop runs on the CPU: it syncs on every Dijkstra step
         t0 = time.perf_counter()
-        plain = [hungarian_plain(torch.from_numpy(cost[bi])).numpy() for bi in range(b)]
+        plain = [hungarian_plain(torch.from_numpy(cost[bi]), return_steps=True) for bi in range(b)]
         plain_ms = (time.perf_counter() - t0) * 1e3
-        for bi in range(b):
-            c64 = cost[bi].astype(np.float64)
-            kernel_total = c64[np.arange(n), cols[bi]].sum()
-            if abs(c64[np.arange(n), plain[bi]].sum() - kernel_total) > (
-                    HUNGARIAN_RTOL * abs(kernel_total)):
-                raise AssertionError(f"K4 {name}[{bi}] disagrees with hungarian_plain")
+        steps = [s for _, s in plain]
+        differ = [bi for bi in range(b) if not np.array_equal(cols[bi], plain[bi][0].numpy())]
         t0 = time.perf_counter()
         for bi in range(b):
             linear_sum_assignment(cost[bi].astype(np.float64))
         scipy_ms = (time.perf_counter() - t0) * 1e3
         k_ms = time_cuda(lambda: hungarian_cuda.batched_hungarian_cuda(cost_dev))
-        b_ms, b_by = bound(cost.nbytes + b * n * 4, 0.0)
-        emit({"phase": "k4_hungarian", "case": name, "shape": [b, n, m],
+        dev = device_ms(lambda: hungarian_cuda.batched_hungarian_cuda(cost_dev), "hungarian_")
+        b_ms, b_by = bound(cost.nbytes + b * n * 8, 0.0)
+        # the problems run side by side: the longest chain of steps sets the time
+        ns_step = dev * 1e6 / max(steps)
+        emit({"phase": "k4_hungarian", "case": name, "shape": [b, n, m], "plan": _k4_plan(n, m, b),
               "max_abs_cost_err_vs_scipy": max(errs), "rtol": HUNGARIAN_RTOL,
-              "kernel_ms": k_ms, "plain_cpu_ms_per_batch": plain_ms,
-              "scipy_cpu_ms_per_batch": scipy_ms, "bound_ms": b_ms})
+              "equal_to_plain": not differ, "problems_differing_from_plain": differ,
+              "steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)},
+              "ns_per_step": ns_step, "kernel_ms": k_ms, "device_ms": dev,
+              "plain_cpu_ms_per_batch": plain_ms, "scipy_cpu_ms_per_batch": scipy_ms,
+              "bound_ms": b_ms})
+        if differ:
+            raise AssertionError(f"K4 {name}: problems {differ} differ from hungarian_plain")
         worst = max(worst, max(errs))
+        cases[name] = {"ms": k_ms, "device_ms": dev, "bound_ms": b_ms, "steps_max": max(steps),
+                       "ns_per_step": ns_step}
         if name == "matcher_uniform":
-            dev = device_ms(lambda: hungarian_cuda.batched_hungarian_cuda(cost_dev),
-                            "hungarian_kernel")
             main = {"ms": k_ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by}
-    return {"max_abs_err": worst, **main}
+    return {"max_abs_err": worst, **main, "cases": cases}
 
 
 def _check_close(got, ref, rel_to_max, rtol):
@@ -505,6 +534,46 @@ class MsdaRecorder:
 
     def __exit__(self, *exc):
         msda_cuda.ms_deform_attn_cuda, msda_cuda.msda_dcoord_cuda = self._k1, self._k2
+
+
+class SamplerShapes:
+    """Wraps the K5 wrapper for one run of a path and counts its launches by
+    call shape (B, R, H, W, P)."""
+
+    def __enter__(self):
+        self.counts = collections.Counter()
+        self._k5 = point_sample_cuda.point_sample_fwd_cuda
+
+        def k5(maps, coords):
+            out = self._k5(maps, coords)
+            self.counts[(*maps.shape, coords.shape[1])] += 1
+            return out
+
+        point_sample_cuda.point_sample_fwd_cuda = k5
+        return self
+
+    def __exit__(self, *exc):
+        point_sample_cuda.point_sample_fwd_cuda = self._k5
+
+
+class HungarianRecorder:
+    """Wraps the K4 wrapper for one run of a path and keeps a host copy of
+    the first cost matrix it is given."""
+
+    def __enter__(self):
+        self.cost = None
+        self._k4 = hungarian_cuda.batched_hungarian_cuda
+
+        def k4(cost):
+            if self.cost is None:
+                self.cost = cost.cpu()
+            return self._k4(cost)
+
+        hungarian_cuda.batched_hungarian_cuda = k4
+        return self
+
+    def __exit__(self, *exc):
+        hungarian_cuda.batched_hungarian_cuda = self._k4
 
 
 def _on_pixel_centres(levels, loc) -> float:
@@ -642,6 +711,11 @@ def phase_sampler():
             bwd = _check_close(dgot, dref, BWD_REL_TO_MAX, BWD_RTOL[dtype])
             plan = point_sample_cuda.dvalue_plan(maps.shape, p)
             share = point_sample_cuda.band_share(coords, maps.shape, plan)
+            k5_plan = point_sample_cuda.fwd_plan(maps.shape, p)
+            x = coords[..., 0] * w - 0.5
+            y = coords[..., 1] * h - 0.5
+            inside = int(((x > -1) & (y > -1) & (x < w) & (y < h)).sum()) * r
+            k5_b = bound(nbytes(maps, coords, got), 12.0 * inside)
             k5_ms = time_cuda(lambda: point_sample_cuda.point_sample_fwd_cuda(maps, coords))
             k6_ms = time_cuda(lambda: point_sample_cuda.point_sample_dvalue_cuda(
                 coords, g, maps.shape, maps.dtype))
@@ -663,8 +737,10 @@ def phase_sampler():
                   "k6": {"within_tol": bwd[0], "max_abs_err": bwd[1], "max_err_rel_to_max": bwd[2]},
                   "tol": {"k5_rel_to_max": SAMPLER_REL_TO_MAX, "k5_rtol": SAMPLER_RTOL,
                           "k6_rel_to_max": BWD_REL_TO_MAX, "k6_rtol": BWD_RTOL[dtype]},
+                  "k5_plan": {**dataclasses.asdict(k5_plan), "grid": k5_plan.grid(b, r, p)},
                   "k6_plan": dataclasses.asdict(plan), "k6_band_share": share,
-                  "k5_ms": k5_ms, "k6_ms": k6_ms, "k5_plain_ms": k5_plain,
+                  "k5_ms": k5_ms, "k5_bound_ms": k5_b[0], "k5_bound_by": k5_b[1],
+                  "k6_ms": k6_ms, "k5_plain_ms": k5_plain,
                   "k6_plain_ms": k6_plain, "grid_sample_ms": lib_fwd,
                   "grid_sample_backward_ms": lib_bwd_ms})
             if not (fwd[0] and bwd[0]):
@@ -672,14 +748,18 @@ def phase_sampler():
             out["point_sample_fwd"]["max_abs_err"] = max(out["point_sample_fwd"]["max_abs_err"], fwd[1])
             out["point_sample_dvalue"]["max_abs_err"] = max(
                 out["point_sample_dvalue"]["max_abs_err"], bwd[1])
-            if case == "loss_candidates" and kind == "sorted" and dtype == torch.bfloat16:
-                x = coords[..., 0] * w - 0.5
-                y = coords[..., 1] * h - 0.5
-                inside = int(((x > -1) & (y > -1) & (x < w) & (y < h)).sum()) * r
-                k5_b = bound(nbytes(maps, coords, got), 12.0 * inside)
-                k6_b = bound(nbytes(coords, g, dgot), 8.0 * inside)
+            if kind == "sorted" and dtype == torch.bfloat16:
+                # the train step's calls at this shape (launches: phase 8)
                 k5_dev = device_ms(lambda: point_sample_cuda.point_sample_fwd_cuda(maps, coords),
                                    "point_sample_fwd_kernel")
+                out["point_sample_fwd"].setdefault("cases", {})[case] = {
+                    "ms": k5_ms, "device_ms": k5_dev, "plain_ms": k5_plain, "library_ms": lib_fwd,
+                    "bound_ms": k5_b[0], "bound_by": k5_b[1]}
+                emit({"phase": "k5_device_time", "case": case, "maps": [b, r, h, w], "points": p,
+                      "dtype": "bfloat16", "points_order": kind, "k5_ms": k5_ms,
+                      "k5_device_ms": k5_dev, "k5_bound_ms": k5_b[0], "grid_sample_ms": lib_fwd})
+            if case == "loss_candidates" and kind == "sorted" and dtype == torch.bfloat16:
+                k6_b = bound(nbytes(coords, g, dgot), 8.0 * inside)
                 k6_dev = device_ms(lambda: point_sample_cuda.point_sample_dvalue_cuda(
                     coords, g, maps.shape, maps.dtype), "point_sample_dvalue_kernel")
                 out["point_sample_fwd"].update(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain,
@@ -688,7 +768,52 @@ def phase_sampler():
                 out["point_sample_dvalue"].update(ms=k6_ms, device_ms=k6_dev, plain_ms=k6_plain,
                                                   library_ms=lib_bwd_ms, bound_ms=k6_b[0],
                                                   bound_by=k6_b[1])
+    _sampler_far_points(gen)
     return out
+
+
+def _sampler_far_points(gen):
+    """K5 and K6 on points far outside the maps, up to 2^31 pixels and
+    beyond (where a float-to-int conversion saturates) in x, y or both,
+    against the plain sampler; and K5 on infinite coordinates, whose samples
+    are 0 (the plain version's are NaN: inf - inf in its weights), the other
+    points' samples unchanged.  A corner offset that overflows faults the
+    launch."""
+    b, r, h, w, p = SAMPLER_CASES["loss_random"]
+    far = torch.tensor([1e8, -1e8, 3e9, -3e9, 2.0 ** 31 / w, -(2.0 ** 31) / w, 1.5, -0.5],
+                       device=DEVICE)
+    n = far.numel()
+    coords = sorted_uniform_points(gen, (b,), p)
+    coords[:, :n, 0] = far
+    coords[:, n:2 * n, 1] = far
+    coords[:, 2 * n:3 * n, 0] = far
+    coords[:, 2 * n:3 * n, 1] = far.flip(0)
+    inf = float("inf")
+    coords_inf = coords.clone()
+    coords_inf[:, :4] = torch.tensor([[inf, 0.5], [-inf, 0.5], [0.5, inf], [0.5, -inf]],
+                                     device=DEVICE)
+    for dtype in (torch.bfloat16, torch.float32):
+        maps = (torch.randn(b, r, h, w, device=DEVICE, generator=gen) * 4).to(dtype)
+        g = torch.randn(b, r, p, device=DEVICE, generator=gen)
+        got = point_sample_cuda.point_sample_fwd_cuda(maps, coords)
+        dgot = point_sample_cuda.point_sample_dvalue_cuda(coords, g, maps.shape, maps.dtype)
+        got_inf = point_sample_cuda.point_sample_fwd_cuda(maps, coords_inf)
+        torch.cuda.synchronize()
+        fwd = _check_close(got, sample_maps_shared_plain(maps, coords, f32_policy=True),
+                           SAMPLER_REL_TO_MAX, SAMPLER_RTOL)
+        bwd = _check_close(dgot, sample_maps_dvalue_plain(maps, coords, g),
+                           BWD_REL_TO_MAX, BWD_RTOL[dtype])
+        inf_zero = bool((got_inf[..., :4] == 0).all())
+        inf_rest = bool(torch.equal(got_inf[..., 4:], got[..., 4:]))
+        far_zero = bool((got[..., :3 * n] == 0).all())
+        emit({"phase": "k5_k6_far_points", "maps": [b, r, h, w], "points": p,
+              "far_points": 3 * n, "dtype": str(dtype).replace("torch.", ""),
+              "k5": {"within_tol": fwd[0], "max_abs_err": fwd[1]},
+              "k6": {"within_tol": bwd[0], "max_abs_err": bwd[1]},
+              "k5_far_samples_zero": far_zero, "k5_infinite_samples_zero": inf_zero,
+              "k5_other_samples_unchanged_by_infinite": inf_rest})
+        if not (fwd[0] and bwd[0] and far_zero and inf_zero and inf_rest):
+            raise AssertionError(f"K5/K6 on far points disagree with the plain sampler ({dtype})")
 
 
 def _full_config(**solver):
@@ -745,7 +870,7 @@ def phase_slice(card: str, rec: MsdaRecorder):
     ]
     text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
 
-    with rec:
+    with rec, HungarianRecorder() as tracking:
         eval_fn(windows[0], text)  # warm-up: cuDNN autotuning, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -771,6 +896,23 @@ def phase_slice(card: str, rec: MsdaRecorder):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
+    # K4 on the window's own tracking costs (near-ties with random weights)
+    cost = tracking.cost.to(DEVICE)
+    k4_ms = time_cuda(lambda: hungarian_cuda.batched_hungarian_cuda(cost))
+    k4_dev = device_ms(lambda: hungarian_cuda.batched_hungarian_cuda(cost), "hungarian_")
+    plain = [hungarian_plain(c, return_steps=True) for c in tracking.cost]
+    steps = [s for _, s in plain]
+    cols = hungarian_cuda.batched_hungarian_cuda(cost).cpu()
+    differ = [i for i, (c, _) in enumerate(plain) if cols[i].tolist() != c.tolist()]
+    emit({"phase": "k4_in_the_window", "shape": list(cost.shape), "kernel_ms": k4_ms,
+          "device_ms": k4_dev, "steps_per_problem": {"mean": float(np.mean(steps)),
+                                                     "max": max(steps)},
+          "equal_to_plain": not differ, "problems_differing_from_plain": differ,
+          "ms_per_window": ms / NUM_WINDOWS, "device_share_of_window": k4_dev / (ms / NUM_WINDOWS),
+          "card": card})
+    if differ:
+        raise AssertionError(f"K4 on the window's costs: problems {differ} differ from "
+                             "hungarian_plain")
     return launches
 
 
@@ -842,12 +984,13 @@ def phase_train(card: str, rec: MsdaRecorder):
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    reset_counts()
-    start.record()
-    metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with SamplerShapes() as shapes:
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
     ms = start.elapsed_time(end) / TRAIN_STEPS
     layers = cfg.model.transformer_decoder.dec_layers + 1
     enc = cfg.model.pixel_decoder.transformer_enc_layers
@@ -859,6 +1002,9 @@ def phase_train(card: str, rec: MsdaRecorder):
                 "point_sample_fwd": (3 + target_samplings) * layers,
                 "point_sample_dvalue": 2 * layers}
     expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    # K5 by call shape: the matcher's and the two loss point sets' samplings
+    by_shape = {case: shapes.counts.pop(shape, 0) for case, shape in SAMPLER_CASES.items()}
+    other_shapes = {str(k): v for k, v in shapes.counts.items()}
     values = [{k: float(v) for k, v in m.items()} for m in metrics]
     frozen_fixed = all(torch.equal(p, b) for p, b in zip(frozen_params, frozen_before))
     offsets_moved = not torch.equal(offsets.detach(), offsets_before)
@@ -867,17 +1013,21 @@ def phase_train(card: str, rec: MsdaRecorder):
           "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
           "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "metrics": values, "launches": launches, "expected_launches": expected,
+          "k5_launches_by_shape": by_shape, "k5_launches_at_other_shapes": other_shapes,
           "frozen_affine_params": len(frozen_params), "frozen_fixed": frozen_fixed,
           "encoder_sampling_offsets_moved": offsets_moved, "card": card})
     if launches != expected:
         raise AssertionError(f"train-step kernel launches {launches} != {expected}")
+    if other_shapes or min(by_shape.values()) == 0:
+        raise AssertionError(f"K5's train-step shapes {by_shape}, others {other_shapes}, are "
+                             f"not phase 5's {SAMPLER_CASES}")
     if not all(np.isfinite(v) for m in values for v in m.values()):
         raise AssertionError("a train-step loss or grad norm is not finite")
     if not frozen_fixed:
         raise AssertionError("a frozen FrozenAffine parameter changed")
     if not offsets_moved:
         raise AssertionError("the encoder's sampling offsets did not move: MSDA lost its gradient")
-    return launches
+    return launches, by_shape
 
 
 def _loss_and_grads(cfg, model, batch, records):
@@ -988,7 +1138,9 @@ def main() -> int:
     eval_rec, train_rec = MsdaRecorder(), MsdaRecorder()
     eval_launches = phase_slice(card, eval_rec)
     phase_slice_vs_plain()
-    train_launches = phase_train(card, train_rec)
+    train_launches, k5_by_shape = phase_train(card, train_rec)
+    for case, n in k5_by_shape.items():
+        fields["point_sample_fwd"]["cases"][case]["launches"] = n
     for name, extra in phase_msda_recorded(eval_rec, train_rec).items():
         fields[name].update(extra)
     phase_train_vs_plain()
@@ -1012,7 +1164,7 @@ def main() -> int:
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],
          "bound_by": fields[name]["bound_by"],
          "library_ms": fields[name].get("library_ms"),
-         **{k: v for k, v in fields[name].items() if k.startswith("recorded_")}}
+         **{k: v for k, v in fields[name].items() if k.startswith("recorded_") or k == "cases"}}
         for name, (src, replaces) in meta.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,16 +14,30 @@
 // What bounds them on this card: memory traffic. A sample reads 4 map values
 // (or adds into 4) and spends about 10 flops, far below the H100's flop/byte
 // ridge; the maps of one criterion call (at most ~21 MB in f32) fit in the
-// 50 MB L2. K5's design:
+// 50 MB L2, and K5's f32 output (10-12 MB per call on the train path) is
+// most of the bytes it must move. K5's design:
 //   * maps stay in their (B, R, H, W) layout, as the model produces them and
 //     as their gradient is wanted, so neither kernel needs a transpose;
-//   * one thread per (b, r, p) with the point fastest: the point reads and
-//     the output writes are coalesced, and the y-sorted points of a warp fall
-//     in a narrow band of rows;
-//   * coordinates (p * size - 0.5, rounded as two operations like the plain
-//     version), weights and sums are f32, whatever the maps' dtype: bf16 maps
-//     are read and widened exactly, which is the JAX package's f32 sampling
-//     policy (f32_tents).
+//   * a 3-D grid (point tiles, row chunks, b) of kFwdThreads-thread blocks:
+//     no integer division in the kernel, and each grid dimension within its
+//     limit (the plan, ops/point_sample_cuda.py::fwd_plan, picks the chunk;
+//     this side refuses a plan that would overrun the grid);
+//   * a thread takes V consecutive points (V = 2 where P allows 8-byte
+//     stores) and computes each point's four corner offsets and weights once,
+//     as the plain version's _corners does: coordinates p * size - 0.5
+//     rounded as two operations, a corner outside the map gets weight 0 and a
+//     clamped offset, so every corner is a load and no branch depends on the
+//     point;
+//   * then it walks its chunk's rows, kFwdRowUnroll at a time: all their
+//     gathers are issued before the first sum, so a thread has up to
+//     kFwdRowUnroll x V x 4 loads in flight (more rows or points per thread
+//     measured slower: the registers they take cost more occupancy than their
+//     loads in flight gain); per row and point the four products are summed in the
+//     plain version's order (0,0), (0,1), (1,0), (1,1) without fused
+//     multiply-adds, so the result is the plain version's bit for bit; each
+//     row's V samples are one coalesced store;
+//   * bf16 maps are read and widened exactly, sums are f32: the JAX package's
+//     f32 sampling policy (f32_tents).
 // K6 as one f32 atomic per (b, r, p, corner) into L2 is paced by L2 atomic
 // throughput, with the 32 lanes of a warp on ~32 scattered addresses, and
 // every row recomputes the coordinates of the same points. K6's design is a
@@ -67,6 +81,10 @@
 namespace {
 
 using scatter::kThreads;
+// K5's plan limits, as in ops/point_sample_cuda.py
+constexpr int kFwdThreads = 128;
+constexpr int kFwdRowUnroll = 2;   // rows whose gathers are in flight together
+constexpr int kMaxGridYZ = 65535;
 // K6's plan limits, as in ops/point_sample_cuda.py
 constexpr int kMaxTilePoints = 1024;
 constexpr int kTableBytes = 32;    // per point: four corner offsets, four weights
@@ -79,43 +97,109 @@ constexpr int kMaxSmem = 232448 - 1024;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename M>
-__global__ void __launch_bounds__(kThreads) point_sample_fwd_kernel(
+// the point's four corners (0,0), (0,1), (1,0), (1,1): offsets in the map,
+// clamped into it, and bilinear weights, 0 for a corner outside
+__device__ __forceinline__ void corners(float cx, float cy, int H, int W, int (&off)[4],
+                                        float (&wt)[4]) {
+  const float x = __fsub_rn(__fmul_rn(cx, (float)W), 0.5f);
+  const float y = __fsub_rn(__fmul_rn(cy, (float)H), 0.5f);
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float fx = __fsub_rn(x, x0f);
+  const float fy = __fsub_rn(y, y0f);
+  const float gx = __fsub_rn(1.f, fx);
+  const float gy = __fsub_rn(1.f, fy);
+  // the floors clamped to [-2, size] before the conversion: every corner of
+  // such a point is outside, as it is of the true floor, and the +1 below
+  // cannot overflow for a coordinate beyond 2^31 pixels or an infinite one
+  const int x0 = (int)fminf(fmaxf(x0f, -2.f), (float)W);
+  const int y0 = (int)fminf(fmaxf(y0f, -2.f), (float)H);
+  const bool in_x0 = x0 >= 0 && x0 < W, in_x1 = x0 >= -1 && x0 < W - 1;
+  const bool in_y0 = y0 >= 0 && y0 < H, in_y1 = y0 >= -1 && y0 < H - 1;
+  const int cx0 = min(max(x0, 0), W - 1), cx1 = min(max(x0, -1) + 1, W - 1);
+  const int ry0 = min(max(y0, 0), H - 1) * W, ry1 = min(max(y0, -1) + 1, H - 1) * W;
+  off[0] = ry0 + cx0;
+  off[1] = ry0 + cx1;
+  off[2] = ry1 + cx0;
+  off[3] = ry1 + cx1;
+  wt[0] = in_y0 && in_x0 ? __fmul_rn(gy, gx) : 0.f;
+  wt[1] = in_y0 && in_x1 ? __fmul_rn(gy, fx) : 0.f;
+  wt[2] = in_y1 && in_x0 ? __fmul_rn(fy, gx) : 0.f;
+  wt[3] = in_y1 && in_x1 ? __fmul_rn(fy, fx) : 0.f;
+}
+
+// K5: block (point tile, row chunk, b); thread: V consecutive points of the
+// tile, for the chunk's rows.
+template <typename M, int V>
+__global__ void __launch_bounds__(kFwdThreads) point_sample_fwd_kernel(
     const M* __restrict__ maps,        // (B, R, H, W)
     const float* __restrict__ coords,  // (B, P, 2) normalized (x, y)
     float* __restrict__ out,           // (B, R, P)
-    int64_t total, int rows, int H, int W, int P) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int p = (int)(idx % P);
-  const int64_t br = idx / P;  // b * rows + r
-  const int64_t b = br / rows;
-  const float* cp = coords + (b * P + p) * 2;
-  const float x = __fsub_rn(__fmul_rn(cp[0], (float)W), 0.5f);
-  const float y = __fsub_rn(__fmul_rn(cp[1], (float)H), 0.5f);
-  float s = 0.f;
-  if (x > -1.f && y > -1.f && x < (float)W && y < (float)H) {
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
-    const float fx = x - x0f;
-    const float fy = y - y0f;
-    const float gx = 1.f - fx;
-    const float gy = 1.f - fy;
-    const M* m = maps + br * H * W;
-    if (y0 >= 0) {
-      const M* r = m + (int64_t)y0 * W;
-      if (x0 >= 0) s += to_f32(r[x0]) * (gy * gx);
-      if (x0 + 1 < W) s += to_f32(r[x0 + 1]) * (gy * fx);
+    int rows, int H, int W, int P, int row_chunk) {
+  const int p0 = (blockIdx.x * kFwdThreads + threadIdx.x) * V;
+  if (p0 >= P) return;  // P is a multiple of V
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * row_chunk;
+  const int nr = min(row_chunk, rows - r0);
+
+  int off[V][4];
+  float wt[V][4];
+  const float* cp = coords + ((int64_t)b * P + p0) * 2;
+  float xy[2 * V];
+  if constexpr (V % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 2; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(cp)[q];
+      xy[4 * q] = t.x;
+      xy[4 * q + 1] = t.y;
+      xy[4 * q + 2] = t.z;
+      xy[4 * q + 3] = t.w;
     }
-    if (y0 + 1 < H) {
-      const M* r = m + (int64_t)(y0 + 1) * W;
-      if (x0 >= 0) s += to_f32(r[x0]) * (fy * gx);
-      if (x0 + 1 < W) s += to_f32(r[x0 + 1]) * (fy * fx);
-    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2 * V; ++q) xy[q] = cp[q];
   }
-  out[idx] = s;
+#pragma unroll
+  for (int v = 0; v < V; ++v) corners(xy[2 * v], xy[2 * v + 1], H, W, off[v], wt[v]);
+
+  const int64_t hw = (int64_t)H * W;
+  const M* m = maps + ((int64_t)b * rows + r0) * hw;
+  float* o = out + ((int64_t)b * rows + r0) * P + p0;
+  for (int r = 0; r < nr; r += kFwdRowUnroll) {
+    float val[kFwdRowUnroll][V][4];
+#pragma unroll
+    for (int u = 0; u < kFwdRowUnroll; ++u) {
+      if (r + u < nr) {
+        const M* mr = m + u * hw;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) val[u][v][c] = to_f32(mr[off[v][c]]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdRowUnroll; ++u) {
+      if (r + u < nr) {
+        float s[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          s[v] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(val[u][v][0], wt[v][0]),
+                                               __fmul_rn(val[u][v][1], wt[v][1])),
+                                     __fmul_rn(val[u][v][2], wt[v][2])),
+                           __fmul_rn(val[u][v][3], wt[v][3]));
+        }
+        float* ou = o + (int64_t)u * P;
+        if constexpr (V == 2) {
+          *reinterpret_cast<float2*>(ou) = make_float2(s[0], s[1]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) ou[v] = s[v];
+        }
+      }
+    }
+    m += kFwdRowUnroll * hw;
+    o += (int64_t)kFwdRowUnroll * P;
+  }
 }
 
 // K6: one block per (point tile, row chunk, b). Dynamic shared memory: the
@@ -264,25 +348,45 @@ __global__ void __launch_bounds__(kThreads) point_sample_dvalue_kernel(
   }
 }
 
-unsigned blocks_for(int64_t total) { return (unsigned)((total + kThreads - 1) / kThreads); }
+template <typename M, int V>
+void launch_fwd(const void* maps, const void* coords, void* out, int batch, int rows,
+                int height, int width, int n_points, int row_chunk, cudaStream_t s) {
+  const dim3 grid((unsigned)((n_points + kFwdThreads * V - 1) / (kFwdThreads * V)),
+                  (unsigned)((rows + row_chunk - 1) / row_chunk), (unsigned)batch);
+  point_sample_fwd_kernel<M, V><<<grid, kFwdThreads, 0, s>>>(
+      static_cast<const M*>(maps), static_cast<const float*>(coords), static_cast<float*>(out),
+      rows, height, width, n_points, row_chunk);
+}
 
 }  // namespace
 
-// map_dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// map_dtype: 0 = float32, 1 = bfloat16.  vec (points per thread, 1 or 2) and
+// row_chunk come from fwd_plan (ops/point_sample_cuda.py).  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
+// that would overrun the grid, int32 offsets within a map, or the alignment
+// of 16-byte point loads and 8-byte stores.
 extern "C" int point_sample_fwd(const void* maps, const void* coords, void* out,
                                 int map_dtype, int batch, int rows, int height,
-                                int width, int n_points, void* stream) {
-  const int64_t total = (int64_t)batch * rows * n_points;
-  if (total == 0) return 0;
+                                int width, int n_points, int vec, int row_chunk,
+                                void* stream) {
+  if ((int64_t)batch * rows * n_points == 0) return 0;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(coords) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  if ((vec != 1 && vec != 2) || (vec == 2 && (n_points % 2 != 0 || !aligned)) ||
+      row_chunk < 1 || ((int64_t)rows + row_chunk - 1) / row_chunk > kMaxGridYZ ||
+      batch > kMaxGridYZ || height < 1 || width < 1 || (int64_t)height * width > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(coords);
-  float* o = static_cast<float*>(out);
-  if (map_dtype == 0) {
-    point_sample_fwd_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const float*>(maps), c, o, total, rows, height, width, n_points);
+  if (map_dtype == 0 && vec == 2) {
+    launch_fwd<float, 2>(maps, coords, out, batch, rows, height, width, n_points, row_chunk, s);
+  } else if (map_dtype == 0) {
+    launch_fwd<float, 1>(maps, coords, out, batch, rows, height, width, n_points, row_chunk, s);
+  } else if (map_dtype == 1 && vec == 2) {
+    launch_fwd<__nv_bfloat16, 2>(maps, coords, out, batch, rows, height, width, n_points,
+                                 row_chunk, s);
   } else if (map_dtype == 1) {
-    point_sample_fwd_kernel<__nv_bfloat16><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(maps), c, o, total, rows, height, width, n_points);
+    launch_fwd<__nv_bfloat16, 1>(maps, coords, out, batch, rows, height, width, n_points,
+                                 row_chunk, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

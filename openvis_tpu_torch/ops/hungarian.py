@@ -11,13 +11,18 @@ the hand-written kernel (``ops/hungarian_cuda.py``), a CPU tensor to
 
 from __future__ import annotations
 
+from typing import Tuple, Union
+
 import torch
 
 _INF = 1e15
 
 
-def hungarian_plain(cost: torch.Tensor) -> torch.Tensor:
-    """(N, M) cost, N <= M -> (N,) int64 column of each row.
+def hungarian_plain(cost: torch.Tensor, return_steps: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
+    """(N, M) cost, N <= M -> (N,) int64 column of each row; with
+    ``return_steps``, also the number of Dijkstra steps the solve took (the
+    sequential chain whose length sets the kernel's time).
 
     The e-maxx loop of ``openvis_tpu/ops/hungarian.py:28-97`` in f32, with
     each Dijkstra relaxation one vectorized O(M) update."""
@@ -29,6 +34,7 @@ def hungarian_plain(cost: torch.Tensor) -> torch.Tensor:
     u = torch.zeros(n, dtype=torch.float32, device=dev)
     v = torch.zeros(m + 1, dtype=torch.float32, device=dev)
     p = torch.full((m + 1,), -1, dtype=torch.int64, device=dev)
+    steps = 0
     for i in range(n):
         p[m] = i
         minv = torch.full((m,), _INF, dtype=torch.float32, device=dev)
@@ -36,6 +42,7 @@ def hungarian_plain(cost: torch.Tensor) -> torch.Tensor:
         way = torch.zeros(m, dtype=torch.int64, device=dev)
         j0 = m
         while int(p[j0]) >= 0:
+            steps += 1
             used[j0] = True
             i0 = int(p[j0])
             cur = cost[i0] - u[i0] - v[:m]
@@ -56,7 +63,7 @@ def hungarian_plain(cost: torch.Tensor) -> torch.Tensor:
     col_of_row = torch.zeros(n, dtype=torch.int64, device=dev)
     assigned = p[:m] >= 0
     col_of_row[p[:m][assigned]] = torch.arange(m, device=dev)[assigned]
-    return col_of_row
+    return (col_of_row, steps) if return_steps else col_of_row
 
 
 def batched_hungarian(cost: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,11 @@ points none.  The kernels are built at first use; a CUDA tensor either
 launches them or raises, there is no fallback.  ``fwd_launches`` (K5) and
 ``dvalue_launches`` (K6) count the successful launches.
 
+K5 is a row-looping gather: one block per (batch item, tile of points, chunk
+of rows), a thread computing its points' corners and weights once and then
+sampling them in every row of the chunk; ``fwd_plan`` picks the points per
+thread and the chunk.
+
 K6 is a scatter privatised in shared memory: one block per (batch item, tile
 of ``tile_points`` points, chunk of ``row_chunk`` rows) bins its corner adds
 by the pixel of the band of map rows they land on, in shared memory, and
@@ -23,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -33,6 +39,13 @@ fwd_launches = 0
 dvalue_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# as in csrc/point_sample.cu: kFwdThreads, kMaxGridYZ
+FWD_THREADS = 128
+MAX_GRID_YZ = 65535
+# K5's plan: rows per block, and the fewest blocks a call should have (two per
+# SM of an H100, which has 132) before the chunk is cut to make more
+FWD_ROW_CHUNK = 8
+FWD_MIN_BLOCKS = 2 * 132
 # as in csrc/point_sample.cu: kThreads, kMaxTilePoints, kTableBytes,
 # kListBytes, kMaxRowChunk, kMaxSmem
 THREADS = 256
@@ -47,6 +60,35 @@ SMEM_TARGET = 40 * 1024
 # of its tile: each binned pixel costs a scan step and a visit, and sparse
 # tiles (the criterion's 3136 random points) are faster with direct adds
 BIN_PIXELS_PER_ADD = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    vec: int         # consecutive points per thread (2: 8-byte stores)
+    row_chunk: int   # rows per block, sharing each thread's corners and weights
+
+    @property
+    def tile_points(self) -> int:
+        return FWD_THREADS * self.vec
+
+    def grid(self, batch: int, rows: int, n_points: int):
+        return (-(-n_points // self.tile_points), -(-rows // self.row_chunk), batch)
+
+
+def fwd_plan(map_shape, n_points: int, aligned: bool = True) -> FwdPlan:
+    """K5's points per thread and rows per block for maps (B, R, H, W) and P
+    points: 2 points where 16-byte point loads and 8-byte stores are aligned
+    (P even and ``aligned``, the points' address a multiple of 16), else 1;
+    FWD_ROW_CHUNK rows, halved while the call has fewer than FWD_MIN_BLOCKS
+    blocks, and never so few that the chunks overrun the grid."""
+    b, r, _, _ = map_shape
+    if b > MAX_GRID_YZ:
+        raise ValueError(f"K5 takes at most {MAX_GRID_YZ} batch items, got {b}")
+    vec = 2 if n_points % 2 == 0 and aligned else 1
+    plan = FwdPlan(vec, max(1, min(r, FWD_ROW_CHUNK)))
+    while plan.row_chunk > 1 and math.prod(plan.grid(b, r, n_points)) < FWD_MIN_BLOCKS:
+        plan = FwdPlan(vec, -(-plan.row_chunk // 2))
+    return FwdPlan(vec, max(plan.row_chunk, -(-r // MAX_GRID_YZ)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +161,7 @@ def band_share(coords: torch.Tensor, map_shape, plan: DValuePlan) -> float:
 def library() -> ctypes.CDLL:
     lib = cuda_build.load("point_sample")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.point_sample_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.point_sample_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.point_sample_fwd.restype = ctypes.c_int
     lib.point_sample_dvalue.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.point_sample_dvalue.restype = ctypes.c_int
@@ -140,7 +182,8 @@ def _check_coords(coords: torch.Tensor, b: int, device) -> int:
 
 def point_sample_fwd_cuda(maps: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """K5: maps (B, R, H, W) f32 | bf16, coords (B, P, 2) f32 normalized
-    (x, y) -> (B, R, P) f32 samples, computed in f32."""
+    (x, y) -> (B, R, P) f32 samples, computed in f32 as the plain version
+    does (the same products summed in the same order)."""
     global fwd_launches
     if not maps.is_cuda:
         raise ValueError("point_sample_fwd_cuda needs CUDA tensors")
@@ -150,10 +193,12 @@ def point_sample_fwd_cuda(maps: torch.Tensor, coords: torch.Tensor) -> torch.Ten
         raise ValueError(f"maps must be a contiguous (B, R, H, W), got {tuple(maps.shape)}")
     b, r, h, w = maps.shape
     p = _check_coords(coords, b, maps.device)
+    plan = fwd_plan(maps.shape, p, aligned=coords.data_ptr() % 16 == 0)
     out = torch.empty((b, r, p), dtype=torch.float32, device=maps.device)
     stream = torch.cuda.current_stream(maps.device).cuda_stream
     err = library().point_sample_fwd(maps.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                                     _DTYPE_CODES[maps.dtype], b, r, h, w, p, stream)
+                                     _DTYPE_CODES[maps.dtype], b, r, h, w, p, plan.vec,
+                                     plan.row_chunk, stream)
     if err != 0:
         raise RuntimeError(f"point_sample_fwd kernel launch failed: CUDA error {err}")
     fwd_launches += 1
