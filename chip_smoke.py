@@ -45,9 +45,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      plain versions, timed beside their bounds
   9. one f32 train-step loss and gradient on the card (kernels) against the
      CPU (plain) at 1x2x192x320, N=8, from the same weights and points
+  10. the eval engine (``engine.evaluate_dataset``) over a synthetic dataset
+     in the YTVIS-2019 format written to a temporary directory (36 frames at
+     720x1280, 19 at 480x640, 133 at 360x640; moving rectangles), at full
+     width with Config()'s eval settings (bf16 AMP, the whole video as one
+     window of up to 128 frames): windows of 10 first (K4's results recorded),
+     then the whole video, timed end to end with its split (mapper, model
+     windows, tracking and top-k, resize and threshold, RLE, evaluation) and
+     its peak memory; the K1/K4 launch counts; K4 held element for element to
+     ``hungarian_plain`` on the engine's own tracking costs; the two runs
+     against each other; then one short f32 video through the engine on the
+     card (kernels) against the CPU (plain)
 
 The line before the last lists every kernel with its launches on the train
-path (phase 8; ``launches_by_path`` adds the eval path of phase 6), its error
+path (phase 8; ``launches_by_path`` adds the eval path of phase 6 and the
+engine's whole-video run of phase 10), its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -60,20 +72,28 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 import itertools
 import json
+import multiprocessing
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
-from openvis_tpu_torch import Config, train
+from openvis_tpu_torch import Config, engine, train
 from openvis_tpu_torch.convert import init_params
+from openvis_tpu_torch.data import catalog, rle, synthetic
+from openvis_tpu_torch.evals import ytvis_eval
 from openvis_tpu_torch.losses import criterion
 from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule
@@ -105,7 +125,11 @@ MSDA_CASES = {  # name -> (batch, levels)
     # one level per launch, as the TPU's per-level v1 kernels sample: the
     # train encoder's largest level (the generic instantiation)
     "one_level_v1": (2, [(60, 108)]),
+    # the eval engine's whole-video window: 128 frames on the 480x864 canvas
+    "engine_whole_video": (128, [(15, 27), (30, 54), (60, 108)]),
 }
+# the cases K1 meets in bf16 only (the engine runs its long windows under AMP)
+MSDA_BF16_ONLY = ("engine_whole_video",)
 MSDA_HEADS, MSDA_CH, MSDA_POINTS = 8, 32, 4
 HUNGARIAN_CASES = {  # name -> (batch, rows, cols)
     "tracking_uniform": (9, 100, 100),
@@ -181,6 +205,37 @@ TRAIN_CHECK_PARAMS = (
     "segmenter.pixel_decoder.encoder.layer0.self_attn.value_proj.weight",
     "segmenter.predictor.heads.mask_embed.layer2.weight",
 )
+# phase 10: the eval engine over a synthetic dataset in the YTVIS-2019 format
+# (its 40 categories), with Config()'s eval settings (the whole video as one
+# window of up to test.max_frames = 128 frames, bf16 AMP, min_size_test 360)
+ENGINE_DATASET = "synthetic_ytvis_2019_val"
+ENGINE_VIDEOS = (  # (height, width, frames, instances)
+    (720, 1280, 36, 3),   # the common YTVIS-2019 val size and length
+    (480, 640, 19, 2),
+    (360, 640, 133, 1),   # longer than max_frames, as OVIS and LV-VIS videos are
+)
+ENGINE_WINDOW = 10        # the re-run with test.window_inference: windows of 10
+# f32 card (kernels) against CPU (plain): one short video on a small canvas
+# (min_size_test and pad_size cut to its size) in windows of 4, so that the
+# CPU side stays short
+ENGINE_CHECK_VIDEO = (192, 320, 7, 2)
+ENGINE_CHECK_WINDOW = 4
+# windows of 10 against the whole video, bf16, one card: cuDNN picks other
+# algorithms at other batch sizes, and the scores are a softmax of 100 *
+# cosine of near-tied random embeddings, so the bound is the port's bf16 one
+# (tests/test_torch_port_slice.py): each video's sorted top-10 scores within
+# 0.1; a prediction of both runs (same video, track and category) agrees on
+# 98 % of its pixels in the frames where both runs' tracks follow the same
+# query
+ENGINE_BF16_SCORE_ATOL = 0.1
+ENGINE_BF16_MASK_AGREE = 0.98
+# f32 card vs CPU: phase 7's score bound; the masks are compared after the
+# > 0 threshold, where only pixels with a logit near 0 may flip; one flipped
+# pixel may move one match across one of the 10 IoU thresholds, which moves
+# AP by at most 1 / (10 x the GT instances of its category) = 0.05
+ENGINE_F32_SCORE_ATOL = SLICE_SCORE_ATOL
+ENGINE_F32_MASK_AGREE = 0.999
+ENGINE_F32_METRIC_ATOL = 0.05
 
 
 def emit(obj) -> None:
@@ -326,7 +381,8 @@ def phase_msda():
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     worst, main = 0.0, None
     for case, (batch, levels) in MSDA_CASES.items():
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.bfloat16,) if case in MSDA_BF16_ONLY else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
             value, loc, attn = _msda_inputs(batch, levels, dtype, gen)
             got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn)
             ref = ms_deform_attn_plain(value, levels, loc, attn)
@@ -557,17 +613,18 @@ class SamplerShapes:
 
 
 class HungarianRecorder:
-    """Wraps the K4 wrapper for one run of a path and keeps a host copy of
-    the first cost matrix it is given."""
+    """Wraps the K4 wrapper for one run of a path and keeps host copies of
+    every cost it is given and of the kernel's assignment of each."""
 
     def __enter__(self):
-        self.cost = None
+        self.costs, self.cols = [], []
         self._k4 = hungarian_cuda.batched_hungarian_cuda
 
         def k4(cost):
-            if self.cost is None:
-                self.cost = cost.cpu()
-            return self._k4(cost)
+            cols = self._k4(cost)
+            self.costs.append(cost.cpu())
+            self.cols.append(cols.cpu())
+            return cols
 
         hungarian_cuda.batched_hungarian_cuda = k4
         return self
@@ -897,10 +954,10 @@ def phase_slice(card: str, rec: MsdaRecorder):
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
     # K4 on the window's own tracking costs (near-ties with random weights)
-    cost = tracking.cost.to(DEVICE)
+    cost = tracking.costs[0].to(DEVICE)
     k4_ms = time_cuda(lambda: hungarian_cuda.batched_hungarian_cuda(cost))
     k4_dev = device_ms(lambda: hungarian_cuda.batched_hungarian_cuda(cost), "hungarian_")
-    plain = [hungarian_plain(c, return_steps=True) for c in tracking.cost]
+    plain = [hungarian_plain(c, return_steps=True) for c in tracking.costs[0]]
     steps = [s for _, s in plain]
     cols = hungarian_cuda.batched_hungarian_cuda(cost).cpu()
     differ = [i for i, (c, _) in enumerate(plain) if cols[i].tolist() != c.tolist()]
@@ -1123,6 +1180,311 @@ def phase_train_vs_plain():
         raise AssertionError(f"the card's train step skipped a kernel: {launches}")
 
 
+class EngineSpans:
+    """Wraps the eval engine's stages for one ``evaluate_dataset`` run: host
+    seconds of the mapper (``data``), of the evaluator's ``process`` and, in
+    it, of resize + threshold + the masks' copy (``threshold``) and of the RLE
+    encoding (``rle``), and of ``_finalize``; CUDA events around each model
+    window and around tracking + top-k (device time); the frames; and each
+    prediction with the track (frame-0 query) it came from and each video's
+    track indices (T, Q), left on the device until ``track_indices``."""
+
+    PATCHED = ((engine, "test_videos"), (engine, "make_window_fn"),
+               (engine, "make_postprocess_fn"), (engine, "_finalize"),
+               (ytvis_eval, "threshold_masks"), (rle, "encode_transposed"),
+               (ytvis_eval.YTVISEvaluator, "process"), (engine, "track_by_embeds"))
+
+    def __enter__(self):
+        self.host = collections.Counter()
+        self.events = {"windows": [], "tracking_topk": []}
+        self.frames, self.preds = 0, []   # preds: (video, track, category, score, segs)
+        self._tracks = []
+        self._orig = [getattr(obj, name) for obj, name in self.PATCHED]
+        videos, window_fn, post_fn, finalize, threshold, encode, process, track = self._orig
+
+        def host_timed(key, fn):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.host[key] += time.perf_counter() - t0
+            return timed
+
+        def event_timed(key, make):
+            def made(*args):
+                fn = make(*args)
+
+                def timed(*a):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*a)
+                    end.record()
+                    self.events[key].append((start, end))
+                    return out
+                return timed
+            return made
+
+        def test_videos(cfg, name):
+            items = videos(cfg, name)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    rec, sample = next(items)
+                except StopIteration:
+                    return
+                finally:
+                    self.host["data"] += time.perf_counter() - t0
+                self.frames += sample["pixels"].shape[0]
+                yield rec, sample
+
+        def record_process(ev, video_id, topk_out, *args, **kwargs):
+            n0 = len(ev.predictions)
+            host_timed("process", process)(ev, video_id, topk_out, *args, **kwargs)
+            kept = [q for q, sc in zip(topk_out["query_idx"].tolist(),
+                                       topk_out["scores"].float().tolist())
+                    if sc > ev.score_threshold]
+            for q, pred in zip(kept, ev.predictions[n0:]):
+                self.preds.append((video_id, q, pred["category_id"], pred["score"],
+                                   pred["segmentations"]))
+
+        def record_track(embeds, *args, **kwargs):
+            indices = track(embeds, *args, **kwargs)
+            self._tracks.append(indices[0])
+            return indices
+
+        patches = (test_videos, event_timed("windows", window_fn),
+                   event_timed("tracking_topk", post_fn), host_timed("finalize", finalize),
+                   host_timed("threshold", threshold), host_timed("rle", encode),
+                   record_process, record_track)
+        for (obj, name), fn in zip(self.PATCHED, patches):
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in zip(self.PATCHED, self._orig):
+            setattr(obj, name, fn)
+
+    def device_seconds(self, key) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events[key]) / 1e3
+
+    def track_indices(self):
+        """Each video's (T, Q) track indices on the host, in video order."""
+        return [t.cpu() for t in self._tracks]
+
+
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _plain_assignments(costs):
+    """``hungarian_plain`` of every problem of ``costs`` (a list of (B, N, M)),
+    with its Dijkstra steps: one problem is a long chain of small torch
+    operations, so the problems go to a pool of processes, one a core."""
+    problems = [c for cost in costs for c in cost]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1), mp_context=ctx,
+                             initializer=_one_thread) as pool:
+        return list(pool.map(functools.partial(hungarian_plain, return_steps=True), problems,
+                             chunksize=4))
+
+
+def _engine_config(root, **test):
+    cfg = _full_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, test=dataclasses.replace(cfg.model.test, **test)),
+        datasets=dataclasses.replace(cfg.datasets, root=root, test=(ENGINE_DATASET,)),
+        output_dir=os.path.join(root, "out"))
+
+
+def _masks_agree(a, b) -> float:
+    ma = np.stack([rle.decode(x) for x in a])
+    mb = np.stack([rle.decode(x) for x in b])
+    return float((ma == mb).mean())
+
+
+def _engine_run(cfg, model, text, device):
+    """One evaluate_dataset over the registered ENGINE_DATASET: (metrics,
+    spans, wall seconds, launches)."""
+    reset_counts()
+    with EngineSpans() as spans:
+        t0 = time.perf_counter()
+        metrics = engine.evaluate_dataset(cfg, model, ENGINE_DATASET, text, device=device)
+        wall = time.perf_counter() - t0
+    return metrics, spans, wall, read_counts()
+
+
+def phase_engine(card: str):
+    """The eval engine over a synthetic YTVIS-2019-format dataset at full
+    width, bf16 AMP: windows of 10 (K4 recorded), then the whole video as in
+    Config() (timed, with its split); K4 on the engine's own tracking costs
+    against hungarian_plain; the two runs against each other; then a small f32
+    run on the card against the CPU.  Returns the launch counts of the
+    whole-video run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    try:
+        ytvis19 = catalog.get("ytvis_2019_val")
+        cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
+        t0 = time.perf_counter()
+        catalog.register(dataclasses.replace(
+            synthetic.write_ytvis_dataset(root, "synth", ENGINE_VIDEOS, cats, seed=SEED),
+            name=ENGINE_DATASET))
+        write_s = time.perf_counter() - t0
+        cfg = _engine_config(root)
+        windowed = _engine_config(root, window_inference=True, window_size=ENGINE_WINDOW)
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        masters = {n: p.detach().clone() for n, p in model.named_parameters()}
+        text = _text(np.random.RandomState(SEED))
+
+        with HungarianRecorder() as tracking:
+            met_w, spans_w, wall_w, launches_w = _engine_run(windowed, model, text, DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        masters_kept = all(torch.equal(p, masters[n]) for n, p in model.named_parameters())
+        del masters
+
+        max_frames = cfg.model.test.max_frames
+        enc = cfg.model.pixel_decoder.transformer_enc_layers
+        zero = {k: 0 for k in launches}
+        expected = {**zero, "msda_fwd": enc * sum(-(-t // max_frames) for _, _, t, _ in ENGINE_VIDEOS),
+                    "hungarian": sum(t > 1 for _, _, t, _ in ENGINE_VIDEOS)}
+        expected_w = {**expected,
+                      "msda_fwd": enc * sum(-(-t // ENGINE_WINDOW) for _, _, t, _ in ENGINE_VIDEOS)}
+        data, process = spans.host["data"], spans.host["process"]
+        split = {
+            "data_mapper_host": data,
+            "model_windows_device": spans.device_seconds("windows"),
+            "tracking_topk_device": spans.device_seconds("tracking_topk"),
+            "process_host": process,
+            "resize_threshold_copy_host": spans.host["threshold"],
+            "rle_host": spans.host["rle"],
+            "wait_for_topk_host": process - spans.host["threshold"] - spans.host["rle"],
+            "finalize_evaluate_host": spans.host["finalize"],
+            "other_host": wall - data - process - spans.host["finalize"],
+        }
+        finite = all(np.isfinite(v) for v in metrics.values())
+        emit({"phase": "engine_full_width", "dataset": "synthetic YTVIS-2019 format, 40 classes",
+              "videos_hwtn": ENGINE_VIDEOS, "dtype": "bf16 AMP", "window": max_frames,
+              "metrics": metrics, "metrics_finite": finite, "predictions": len(spans.preds),
+              "launches": launches, "expected_launches": expected,
+              "frames": spans.frames, "wall_s": wall, "frames_per_s": spans.frames / wall,
+              "split_s": split, "peak_mem_gib": peak, "callers_f32_params_unchanged": masters_kept,
+              "windowed_run": {"window": ENGINE_WINDOW, "wall_s": wall_w,
+                               "frames_per_s": spans_w.frames / wall_w,
+                               "launches": launches_w, "expected_launches": expected_w},
+              "dataset_write_s": write_s, "card": card})
+        if launches != expected or launches_w != expected_w:
+            raise AssertionError(f"engine launches {launches}, {launches_w} != "
+                                 f"{expected}, {expected_w}")
+        if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+            raise AssertionError(f"engine metrics {metrics}, {len(spans.preds)} predictions")
+        if not masters_kept:
+            raise AssertionError("evaluate_dataset changed the caller's f32 parameters")
+
+        # K4 on the engine's own tracking costs, one launch per video
+        t0 = time.perf_counter()
+        plain = _plain_assignments(tracking.costs)
+        plain_s = time.perf_counter() - t0
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        steps = [n for _, n in plain]
+        # windows of 10 against the whole video: the sorted scores of each
+        # video, and the masks of the predictions of both runs on the frames
+        # where both runs' tracks follow the same query (near-tied tracking
+        # costs let a bf16 rounding hand a track to another query)
+        score_gap, agree, agree_all, same_frames, frames = 0.0, [], [], 0, 0
+        whole = {(v, q, c): segs for v, q, c, _, segs in spans.preds}
+        tracks_w, tracks_v = spans_w.track_indices(), spans.track_indices()
+        for vid in range(1, len(ENGINE_VIDEOS) + 1):
+            a = sorted(sc for v, _, _, sc, _ in spans_w.preds if v == vid)
+            b = sorted(sc for v, _, _, sc, _ in spans.preds if v == vid)
+            if len(a) != len(b):
+                raise AssertionError(f"video {vid}: {len(a)} windowed, {len(b)} whole predictions")
+            score_gap = max([score_gap] + [abs(x - y) for x, y in zip(a, b)])
+        for v, q, c, _, segs in spans_w.preds:
+            if (v, q, c) not in whole:
+                continue
+            same = (tracks_w[v - 1][:, q] == tracks_v[v - 1][:, q]).numpy()
+            ma = np.stack([rle.decode(x) for x in segs])
+            mb = np.stack([rle.decode(x) for x in whole[(v, q, c)]])
+            agree_all.append(float((ma == mb).mean()))
+            frames += len(same)
+            same_frames += int(same.sum())
+            if same.any():
+                agree.append(float((ma[same] == mb[same]).mean()))
+        emit({"phase": "engine_checks", "k4_batches": [list(c.shape) for c in tracking.costs],
+              "k4_equal_to_plain": not differ, "k4_problems_differing": differ,
+              "k4_steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)},
+              "k4_plain_seconds": plain_s,
+              "windowed_vs_whole": {"max_sorted_score_gap": score_gap,
+                                    "common_predictions": len(agree_all),
+                                    "frames_on_the_same_query": [same_frames, frames],
+                                    "min_mask_agreement_same_query": min(agree, default=None),
+                                    "min_mask_agreement_all_frames": min(agree_all, default=None),
+                                    "metrics_windowed": met_w},
+              "tol": {"score_atol": ENGINE_BF16_SCORE_ATOL, "mask_agree": ENGINE_BF16_MASK_AGREE}})
+        if differ or len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"K4 on the engine's costs differs from hungarian_plain: {differ}")
+        if score_gap > ENGINE_BF16_SCORE_ATOL or not agree or min(agree) < ENGINE_BF16_MASK_AGREE:
+            raise AssertionError("the windowed and the whole-video runs disagree")
+        del model
+        phase_engine_vs_plain(root, cats)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_engine_vs_plain(root, cats):
+    """One short f32 video through the engine on the card (kernels) and on
+    the CPU (plain), from one model."""
+    name = ENGINE_DATASET + "_check"
+    catalog.register(dataclasses.replace(
+        synthetic.write_ytvis_dataset(root, "check", [ENGINE_CHECK_VIDEO], cats, seed=SEED + 3),
+        name=name))
+    h, w = ENGINE_CHECK_VIDEO[:2]
+    base = _engine_config(root, window_inference=True, window_size=ENGINE_CHECK_WINDOW, amp=False)
+    base = dataclasses.replace(
+        base, input=dataclasses.replace(base.input, min_size_test=h, pad_size=(h, w)),
+        datasets=dataclasses.replace(base.datasets, test=(name,)))
+    model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
+    text = _text(np.random.RandomState(SEED + 3))
+    runs = {}
+    for device in ("cpu", DEVICE):
+        cfg = dataclasses.replace(base, output_dir=os.path.join(root, f"check_{device}"))
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = engine.evaluate_dataset(cfg, model, name, text, device=device)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(cfg.output_dir, f"results_{name}.json")) as f:
+            runs[device] = (metrics, json.load(f), seconds, read_counts())
+    (m_ref, p_ref, s_ref, _), (m_got, p_got, s_got, launches) = runs["cpu"], runs[DEVICE]
+    same = [(p["category_id"]) for p in p_got] == [(p["category_id"]) for p in p_ref]
+    score_err = max((abs(a["score"] - b["score"]) for a, b in zip(p_got, p_ref)), default=0.0)
+    agree = min((_masks_agree(a["segmentations"], b["segmentations"])
+                 for a, b in zip(p_got, p_ref)), default=1.0)
+    metric_err = max(abs(m_got[k] - m_ref[k]) for k in m_ref)
+    emit({"phase": "engine_kernels_vs_plain", "dtype": "float32", "tf32": False,
+          "video_hwtn": ENGINE_CHECK_VIDEO, "window": ENGINE_CHECK_WINDOW,
+          "predictions": [len(p_got), len(p_ref)], "categories_equal": same,
+          "max_abs_score_err": score_err, "min_mask_agreement": agree,
+          "max_abs_metric_err": metric_err, "metrics_kernel": m_got, "metrics_plain": m_ref,
+          "kernel_launches": launches, "seconds_card_cpu": [s_got, s_ref],
+          "tol": {"score_atol": ENGINE_F32_SCORE_ATOL, "mask_agree": ENGINE_F32_MASK_AGREE,
+                  "metric_atol": ENGINE_F32_METRIC_ATOL}})
+    if not (same and len(p_got) == len(p_ref) and score_err <= ENGINE_F32_SCORE_ATOL
+            and agree >= ENGINE_F32_MASK_AGREE and metric_err <= ENGINE_F32_METRIC_ATOL):
+        raise AssertionError("the engine on the card disagrees with the engine on the CPU")
+    if launches["msda_fwd"] == 0 or launches["hungarian"] == 0:
+        raise AssertionError(f"the card's engine run skipped a kernel: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -1144,6 +1506,7 @@ def main() -> int:
     for name, extra in phase_msda_recorded(eval_rec, train_rec).items():
         fields[name].update(extra)
     phase_train_vs_plain()
+    engine_launches = phase_engine(card)
     leaked = [m for m in ("jax", "openvis_tpu") if m in sys.modules]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -1158,7 +1521,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"openvis_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": train_launches[name],
-         "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name]},
+         "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name],
+                              "engine": engine_launches[name]},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

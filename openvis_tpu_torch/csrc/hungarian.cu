@@ -50,6 +50,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "opt_in.cuh"
+
 namespace {
 
 constexpr float kInf = 1e15f;  // openvis_tpu/ops/hungarian_pallas.py _INF
@@ -372,17 +374,6 @@ __global__ void __launch_bounds__(kBlockMaxThreads) hungarian_block_kernel(
   }
 }
 
-// above 48 KB of shared memory, static and dynamic together, a kernel must opt
-// in: once per kernel, to the most a plan may ask
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  done = e == cudaSuccess;
-  return e;
-}
-
 }  // namespace
 
 // cost: device (batch, n, m) float32, n <= m; col_of_row: device (batch, n)
@@ -399,18 +390,19 @@ extern "C" int hungarian_solve(const float* cost, int64_t* col_of_row, int batch
     if (m + 1 > kWarpMaxCols || (int64_t)smem_bytes != 4 * warp_problem_floats(n, m) ||
         smem_bytes > kMaxSmem)
       return (int)cudaErrorInvalidValue;
-    static bool opted = false;
+    static bool opted[kMaxOptInDevices] = {};
     if (smem_bytes > 48 * 1024) {
-      const cudaError_t e = opt_in(hungarian_warp_kernel<kWarpCols>, opted);
+      const cudaError_t e =
+          opt_in_shared_memory(hungarian_warp_kernel<kWarpCols>, kMaxSmem, opted);
       if (e != cudaSuccess) return (int)e;
     }
     hungarian_warp_kernel<kWarpCols><<<batch, 32, smem_bytes, s>>>(cost, col_of_row, n, m);
   } else if (variant == kBlockSolver) {
     if ((int64_t)smem_bytes != block_smem_bytes(n, m) || smem_bytes > kMaxSmem)
       return (int)cudaErrorInvalidValue;
-    static bool opted = false;
+    static bool opted[kMaxOptInDevices] = {};
     if (smem_bytes > 48 * 1024) {
-      const cudaError_t e = opt_in(hungarian_block_kernel, opted);
+      const cudaError_t e = opt_in_shared_memory(hungarian_block_kernel, kMaxSmem, opted);
       if (e != cudaSuccess) return (int)e;
     }
     int threads = ((m + 1 + 31) / 32) * 32;

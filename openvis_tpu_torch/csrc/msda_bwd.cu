@@ -81,6 +81,7 @@
 #include <limits.h>
 
 #include "msda_common.cuh"
+#include "opt_in.cuh"
 #include "scatter_common.cuh"
 
 namespace {
@@ -466,15 +467,9 @@ int launch_dvalue(const float* loc, const void* attn, const void* grad, float* d
                   const dim3& grid, int smem, int len_in, int len_q, int n_heads,
                   int channels, int n_points, int lanes_log2, int tile_queries,
                   int band_pixels, const Levels& lv, cudaStream_t stream) {
-  // above 48 KB of shared memory, static and dynamic together, a kernel
-  // must opt in: once, to the most a plan may ask
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        msda_dvalue_kernel<V, A, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = true;
-  }
+  static bool opted_in[kMaxOptInDevices] = {};
+  const cudaError_t err = opt_in_shared_memory(msda_dvalue_kernel<V, A, VEC>, kMaxSmem, opted_in);
+  if (err != cudaSuccess) return (int)err;
   msda_dvalue_kernel<V, A, VEC><<<grid, kThreads, (size_t)smem, stream>>>(
       loc, static_cast<const A*>(attn), static_cast<const V*>(grad), dvalue, len_in, len_q,
       n_heads, channels, n_points, lanes_log2, tile_queries, band_pixels, lv);

@@ -76,6 +76,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "opt_in.cuh"
 #include "scatter_common.cuh"
 
 namespace {
@@ -413,15 +414,9 @@ extern "C" int point_sample_dvalue(const void* coords, const void* grad,
       (int64_t)height * width + width > INT_MAX ||
       (reinterpret_cast<uintptr_t>(dmaps) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  // above 48 KB of shared memory, static and dynamic together, a kernel
-  // must opt in: once, to the most a plan may ask
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        point_sample_dvalue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = true;
-  }
+  static bool opted_in[kMaxOptInDevices] = {};
+  const cudaError_t err = opt_in_shared_memory(point_sample_dvalue_kernel, kMaxSmem, opted_in);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)tiles, (unsigned)chunks, (unsigned)batch);
   point_sample_dvalue_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coords), static_cast<const float*>(grad),

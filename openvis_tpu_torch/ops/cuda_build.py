@@ -10,6 +10,7 @@ Only sources in this repository are built.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,9 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -82,3 +85,19 @@ def build_all(names: Sequence[str]) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
+
+
+@contextlib.contextmanager
+def launch_on(*tensors: torch.Tensor) -> Iterator[int]:
+    """Enter the one CUDA device that all of ``tensors`` lie on and yield the
+    raw handle of its current stream: a kernel launched (and an output
+    allocated) inside runs on the tensors' device, whatever device is
+    current outside.  Raises ``ValueError`` for a tensor off the card or for
+    tensors on several devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError("a CUDA kernel needs all its tensors on one CUDA device, got "
+                         f"{sorted(str(d) for d in devices)}")
+    (device,) = devices
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

@@ -81,8 +81,6 @@ def batched_hungarian_cuda(cost: torch.Tensor) -> torch.Tensor:
     """cost (B, N, M) float32 on the card, N <= M -> (B, N) int64 column of
     each row; the assignment has minimum total cost."""
     global launches
-    if not cost.is_cuda:
-        raise ValueError("batched_hungarian_cuda needs a CUDA tensor")
     if cost.dtype != torch.float32:
         raise TypeError(f"cost must be float32, got {cost.dtype}")
     if cost.dim() != 3:
@@ -91,12 +89,12 @@ def batched_hungarian_cuda(cost: torch.Tensor) -> torch.Tensor:
         raise ValueError("batched_hungarian_cuda needs a contiguous tensor")
     b, n, m = cost.shape
     plan = launch_plan(n, m)
-    out = torch.empty((b, n), dtype=torch.int64, device=cost.device)
-    if b == 0 or n == 0:
-        return out
-    stream = torch.cuda.current_stream(cost.device).cuda_stream
-    err = library().hungarian_solve(cost.data_ptr(), out.data_ptr(), b, n, m, plan.variant,
-                                    plan.smem_bytes, stream)
+    with cuda_build.launch_on(cost) as stream:
+        out = torch.empty((b, n), dtype=torch.int64, device=cost.device)
+        if b == 0 or n == 0:
+            return out
+        err = library().hungarian_solve(cost.data_ptr(), out.data_ptr(), b, n, m,
+                                        plan.variant, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"hungarian kernel launch failed: CUDA error {err}")
     launches += 1

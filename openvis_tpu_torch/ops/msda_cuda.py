@@ -221,23 +221,10 @@ def bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _check(value, spatial_shapes, sampling_locations, attention_weights,
-           grad_out=None) -> List[int]:
-    """Validate the kernels' inputs; returns the flat (h, w, start) level
-    table."""
-    tensors = [value, sampling_locations, attention_weights]
-    if grad_out is not None:
-        tensors.append(grad_out)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("the MSDA kernels need CUDA tensors")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("the MSDA kernels: tensors on different devices")
-    return _validate(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
-
-
 def _validate(value, spatial_shapes, sampling_locations, attention_weights,
               grad_out=None) -> List[int]:
-    """The checks of ``_check`` that do not depend on the device."""
+    """Validate the kernels' inputs (their device is ``cuda_build.launch_on``'s
+    check); returns the flat (h, w, start) level table."""
     tensors = [value, sampling_locations, attention_weights]
     if grad_out is not None:
         tensors.append(grad_out)
@@ -283,19 +270,19 @@ def ms_deform_attn_cuda(
 ) -> torch.Tensor:                               # (B, Lq, nh * ch), value dtype
     """K1: the MSDA forward."""
     global launches
-    hws = _check(value, spatial_shapes, sampling_locations, attention_weights)
+    hws = _validate(value, spatial_shapes, sampling_locations, attention_weights)
     b, len_in, nh, ch = value.shape
     _, lq, _, nl, p, _ = sampling_locations.shape
     plan = launch_plan(value, sampling_locations, attention_weights)
-    out = torch.empty((b, lq, nh * ch), dtype=value.dtype, device=value.device)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = library().msda_fwd(
-        value.data_ptr(), sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[value.dtype], _DTYPE_CODES[attention_weights.dtype],
-        b, len_in, lq, nh, ch, nl, p, (ctypes.c_int * len(hws))(*hws),
-        plan.variant, plan.lanes_log2, plan.blocks, stream,
-    )
+    with cuda_build.launch_on(value, sampling_locations, attention_weights) as stream:
+        out = torch.empty((b, lq, nh * ch), dtype=value.dtype, device=value.device)
+        err = library().msda_fwd(
+            value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[value.dtype], _DTYPE_CODES[attention_weights.dtype],
+            b, len_in, lq, nh, ch, nl, p, (ctypes.c_int * len(hws))(*hws),
+            plan.variant, plan.lanes_log2, plan.blocks, stream,
+        )
     if err != 0:
         raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {err}")
     launches += 1
@@ -304,7 +291,7 @@ def ms_deform_attn_cuda(
 
 def _bwd_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out):
     """The dtype codes, extents and level table of both backward kernels."""
-    hws = _check(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+    hws = _validate(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
     b, len_in, nh, ch = value.shape
     _, lq, _, nl, p, _ = sampling_locations.shape
     return (_DTYPE_CODES[value.dtype], _DTYPE_CODES[attention_weights.dtype],
@@ -317,14 +304,15 @@ def msda_dcoord_cuda(value, spatial_shapes, sampling_locations, attention_weight
     global dcoord_launches
     dims = _bwd_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
     plan = launch_plan(value, sampling_locations, attention_weights, grad_out)
-    dloc = torch.empty_like(sampling_locations)
-    dattn = torch.empty_like(attention_weights)
-    err = bwd_library().msda_bwd_dcoord(
-        value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
-        grad_out.data_ptr(), dloc.data_ptr(), dattn.data_ptr(), *dims,
-        plan.variant, plan.lanes_log2, plan.blocks,
-        torch.cuda.current_stream(value.device).cuda_stream,
-    )
+    with cuda_build.launch_on(value, sampling_locations, attention_weights,
+                              grad_out) as stream:
+        dloc = torch.empty_like(sampling_locations)
+        dattn = torch.empty_like(attention_weights)
+        err = bwd_library().msda_bwd_dcoord(
+            value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            grad_out.data_ptr(), dloc.data_ptr(), dattn.data_ptr(), *dims,
+            plan.variant, plan.lanes_log2, plan.blocks, stream,
+        )
     if err != 0:
         raise RuntimeError(f"msda_bwd_dcoord kernel launch failed: CUDA error {err}")
     dcoord_launches += 1
@@ -338,13 +326,14 @@ def msda_dvalue_cuda(value, spatial_shapes, sampling_locations, attention_weight
     global dvalue_launches
     dims = _bwd_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
     plan = dvalue_plan(value, sampling_locations)
-    dvalue32 = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    err = bwd_library().msda_bwd_dvalue(
-        sampling_locations.data_ptr(), attention_weights.data_ptr(),
-        grad_out.data_ptr(), dvalue32.data_ptr(), *dims,
-        plan.vec, plan.lanes_log2, plan.tile_queries, plan.band_pixels,
-        torch.cuda.current_stream(value.device).cuda_stream,
-    )
+    with cuda_build.launch_on(value, sampling_locations, attention_weights,
+                              grad_out) as stream:
+        dvalue32 = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+        err = bwd_library().msda_bwd_dvalue(
+            sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            grad_out.data_ptr(), dvalue32.data_ptr(), *dims,
+            plan.vec, plan.lanes_log2, plan.tile_queries, plan.band_pixels, stream,
+        )
     if err != 0:
         raise RuntimeError(f"msda_bwd_dvalue kernel launch failed: CUDA error {err}")
     dvalue_launches += 1

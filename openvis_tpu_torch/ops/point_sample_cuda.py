@@ -168,9 +168,7 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check_coords(coords: torch.Tensor, b: int, device) -> int:
-    if not coords.is_cuda or coords.device != device:
-        raise ValueError("the point-sampler kernels need all tensors on one CUDA device")
+def _check_coords(coords: torch.Tensor, b: int) -> int:
     if coords.dtype != torch.float32:
         raise TypeError(f"points must be float32, got {coords.dtype}")
     if coords.dim() != 3 or coords.shape[0] != b or coords.shape[2] != 2:
@@ -185,20 +183,18 @@ def point_sample_fwd_cuda(maps: torch.Tensor, coords: torch.Tensor) -> torch.Ten
     (x, y) -> (B, R, P) f32 samples, computed in f32 as the plain version
     does (the same products summed in the same order)."""
     global fwd_launches
-    if not maps.is_cuda:
-        raise ValueError("point_sample_fwd_cuda needs CUDA tensors")
     if maps.dtype not in _DTYPE_CODES:
         raise TypeError(f"maps must be float32 or bfloat16, got {maps.dtype}")
     if maps.dim() != 4 or not maps.is_contiguous():
         raise ValueError(f"maps must be a contiguous (B, R, H, W), got {tuple(maps.shape)}")
     b, r, h, w = maps.shape
-    p = _check_coords(coords, b, maps.device)
+    p = _check_coords(coords, b)
     plan = fwd_plan(maps.shape, p, aligned=coords.data_ptr() % 16 == 0)
-    out = torch.empty((b, r, p), dtype=torch.float32, device=maps.device)
-    stream = torch.cuda.current_stream(maps.device).cuda_stream
-    err = library().point_sample_fwd(maps.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                                     _DTYPE_CODES[maps.dtype], b, r, h, w, p, plan.vec,
-                                     plan.row_chunk, stream)
+    with cuda_build.launch_on(maps, coords) as stream:
+        out = torch.empty((b, r, p), dtype=torch.float32, device=maps.device)
+        err = library().point_sample_fwd(maps.data_ptr(), coords.data_ptr(), out.data_ptr(),
+                                         _DTYPE_CODES[maps.dtype], b, r, h, w, p, plan.vec,
+                                         plan.row_chunk, stream)
     if err != 0:
         raise RuntimeError(f"point_sample_fwd kernel launch failed: CUDA error {err}")
     fwd_launches += 1
@@ -211,21 +207,19 @@ def point_sample_dvalue_cuda(coords: torch.Tensor, grad: torch.Tensor,
     gradient ``grad`` (B, R, P) f32; f32 adds (binned in shared memory and
     summed per pixel, or direct atomics) into a zeroed scratch."""
     global dvalue_launches
-    if not grad.is_cuda:
-        raise ValueError("point_sample_dvalue_cuda needs CUDA tensors")
     b, r, h, w = map_shape
-    p = _check_coords(coords, b, grad.device)
+    p = _check_coords(coords, b)
     if grad.dtype != torch.float32 or tuple(grad.shape) != (b, r, p):
         raise ValueError(f"grad must be float32 ({b}, {r}, {p}), got "
                          f"{grad.dtype} {tuple(grad.shape)}")
     if not grad.is_contiguous():
         raise ValueError("the point-sampler kernels need contiguous tensors")
     plan = dvalue_plan(map_shape, p)
-    dmaps = torch.zeros((b, r, h, w), dtype=torch.float32, device=grad.device)
-    stream = torch.cuda.current_stream(grad.device).cuda_stream
-    err = library().point_sample_dvalue(coords.data_ptr(), grad.data_ptr(),
-                                        dmaps.data_ptr(), b, r, h, w, p, plan.tile_points,
-                                        plan.row_chunk, plan.band_pixels, stream)
+    with cuda_build.launch_on(coords, grad) as stream:
+        dmaps = torch.zeros((b, r, h, w), dtype=torch.float32, device=grad.device)
+        err = library().point_sample_dvalue(coords.data_ptr(), grad.data_ptr(),
+                                            dmaps.data_ptr(), b, r, h, w, p, plan.tile_points,
+                                            plan.row_chunk, plan.band_pixels, stream)
     if err != 0:
         raise RuntimeError(f"point_sample_dvalue kernel launch failed: CUDA error {err}")
     dvalue_launches += 1
