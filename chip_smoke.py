@@ -56,10 +56,27 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      ``hungarian_plain`` on the engine's own tracking costs; the two runs
      against each other; then one short f32 video through the engine on the
      card (kernels) against the CPU (plain)
+  11. the CLI (``train_net_torch.py``) at full width with the recipe
+     ``configs/openvoc_ytvis_coco/simplebsl_online_R50_bs8_12000st.yaml``
+     (bf16 AMP, 8 one-frame clips a step, 12544 points), the text bank
+     replaced by seeded rows (the CLIP text tower is not ported): synthetic
+     YTVIS (720x1280) and COCO (480x640) train sets mixed 1.0 : 0.75 and a
+     small eval set, written to a temporary directory; (1) 6 steps from
+     scratch with checkpoints at 3 and 6 (ms a step from CUDA events, the
+     loader's wait, each save's ms and size, peak memory, the launches);
+     (2) ``--resume`` from the step-3 checkpoint to 6, the restored state
+     equal to the file bit for bit; (3) ``--eval-only --weights <checkpoints>``;
+     then, on the API, 2 + 2 steps resumed against 4 on fixed batches (their
+     update's distance beside a second uninterrupted run and two faulty
+     resumes), with the first step's K1-K6 inputs held against the plain
+     versions; one step of the global batch of 8 on 2 gloo processes (4
+     clips each) against 1 process, in f32 and in bf16; and one step through
+     ``--distributed`` under NCCL with a world of 1
 
 The line before the last lists every kernel with its launches on the train
-path (phase 8; ``launches_by_path`` adds the eval path of phase 6 and the
-engine's whole-video run of phase 10), its error
+path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
+engine's whole-video run of phase 10 and the CLI's training and eval runs of
+phase 11), its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -91,8 +108,16 @@ import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from openvis_tpu_torch import Config, engine, train
+from openvis_tpu_torch.checkpoint import (
+    latest_step,
+    load_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from openvis_tpu_torch.config import load_config
 from openvis_tpu_torch.convert import init_params
 from openvis_tpu_torch.data import catalog, rle, synthetic
+from openvis_tpu_torch.data.loader import TrainLoader
 from openvis_tpu_torch.evals import ytvis_eval
 from openvis_tpu_torch.losses import criterion
 from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
@@ -236,6 +261,35 @@ ENGINE_BF16_MASK_AGREE = 0.98
 ENGINE_F32_SCORE_ATOL = SLICE_SCORE_ATOL
 ENGINE_F32_MASK_AGREE = 0.999
 ENGINE_F32_METRIC_ATOL = 0.05
+# phase 11: the CLI with the recipe, on synthetic data in the YTVIS-2019
+# taxonomy (40 categories): videos at YTVIS-2019's common 720x1280, COCO
+# images at COCO's common 480x640
+CLI_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "simplebsl_online_R50_bs8_12000st.yaml")
+CLI_TRAIN_VIDEOS = tuple((720, 1280, 8, 1 + i % 3) for i in range(6))  # (h, w, frames, instances)
+CLI_TRAIN_IMAGES = tuple((480, 640, 1 + i % 3) for i in range(8))      # (h, w, instances)
+CLI_EVAL_VIDEOS = ((720, 1280, 6, 2), (480, 640, 5, 1))
+CLI_MAX_ITER, CLI_PERIOD = 6, 3
+# 2 + 2 steps resumed against 4 on the card, bf16 AMP: the distance of the
+# final parameters over the norm of the uninterrupted run's update.  K3/K6's
+# atomics are not deterministic, and Adam's first steps (+-lr where a
+# gradient is near zero) amplify their roundings: two uninterrupted runs
+# read 8.9-11.0 % apart on an H100, a resume with AdamW's mu zeroed 35.7-36.4 %
+CLI_RESUME_UPDATE_DIFF = 0.2
+# step 3 from the same restored state in both runs: the same parameters,
+# batch and points; the mask losses differ only where a sum's order does
+# (they were equal on an H100; 2.0e-3 and 4.9e-3 apart with the stream one
+# step off)
+CLI_RESUME_LOSS_RTOL = 1e-4
+# one step of the global batch on 2 gloo processes (4 clips each) against 1
+# process (8 clips) on the card, from the same weights and points.  f32 with
+# TF32 off: the sums run in other orders (batch 4 against 8 in cuDNN and
+# cuBLAS, the reduce, K3/K6's atomics), as phase 9's card-vs-CPU; bf16 AMP:
+# other algorithms at another batch size round differently, and a near-tied
+# matching cost can hand a target to another query (its mask and class
+# gradients move with it)
+DP_TOL = {"float32": {"loss_rtol": 1e-3, "grad_norm_rtol": 1e-3, "grad_diff_rel_norm": 1e-2},
+          "bf16 AMP": {"loss_rtol": 2e-2, "grad_norm_rtol": 2e-2, "grad_diff_rel_norm": 0.1}}
+DP_JOIN_S = 600
 
 
 def emit(obj) -> None:
@@ -612,6 +666,34 @@ class SamplerShapes:
         point_sample_cuda.point_sample_fwd_cuda = self._k5
 
 
+class SamplerInputs:
+    """Wraps the K5 and K6 wrappers for one run of a path and keeps host
+    copies of the first call's inputs of each call shape: K5's (maps,
+    coords) by (B, R, H, W, P), K6's (coords, grad, maps' shape and dtype)
+    by (B, R, H, W, P)."""
+
+    def __enter__(self):
+        self.fwd, self.dvalue = {}, {}
+        self._k5, self._k6 = (point_sample_cuda.point_sample_fwd_cuda,
+                              point_sample_cuda.point_sample_dvalue_cuda)
+
+        def k5(maps, coords):
+            self.fwd.setdefault((*maps.shape, coords.shape[1]), (maps.cpu(), coords.cpu()))
+            return self._k5(maps, coords)
+
+        def k6(coords, grad, map_shape, map_dtype):
+            self.dvalue.setdefault((*map_shape, coords.shape[1]),
+                                   (coords.cpu(), grad.cpu(), tuple(map_shape), map_dtype))
+            return self._k6(coords, grad, map_shape, map_dtype)
+
+        point_sample_cuda.point_sample_fwd_cuda, point_sample_cuda.point_sample_dvalue_cuda = k5, k6
+        return self
+
+    def __exit__(self, *exc):
+        point_sample_cuda.point_sample_fwd_cuda, point_sample_cuda.point_sample_dvalue_cuda = (
+            self._k5, self._k6)
+
+
 class HungarianRecorder:
     """Wraps the K4 wrapper for one run of a path and keeps host copies of
     every cost it is given and of the kernel's assignment of each."""
@@ -651,38 +733,38 @@ def _bound_parts(nbytes_moved, flops):
             "bound_operations_ms": flops / F32_FLOPS * 1e3}
 
 
-def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
-    """K1, K2 and K3 on the inputs the first encoder layer gave them on the
-    paths (phases 6 and 8: a full-width eval window and train step; K3 takes
-    K2's inputs), against the plain versions with the tolerances of phases 2
-    and 4, timed beside their bounds; returns the kernels line's
-    recorded-input times."""
-    out = {}
-    for path, rec in (("eval", eval_rec), ("train", train_rec)):
-        (value, levels, loc, attn), plan = rec.fwd
-        value, loc, attn = (t.to(DEVICE) for t in (value, loc, attn))
-        got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn)
-        ref = ms_deform_attn_plain(value, levels, loc, attn)
-        torch.cuda.synchronize()
-        atol, rtol = MSDA_TOL[value.dtype]
-        diff = (got.float() - ref.float()).abs()
-        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
-        k_ms = time_cuda(lambda: msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn))
-        moved = nbytes(value, loc, attn, got)
-        flops = MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH
-        b_ms, b_by = bound(moved, flops)
-        emit({"phase": "k1_recorded_inputs", "path": path, "layer": 0,
-              "batch": value.shape[0], "levels": levels,
-              "dtypes": [str(t.dtype).replace("torch.", "") for t in (value, loc, attn)],
-              "plan": plan, "on_pixel_centres": _on_pixel_centres(levels, loc),
-              "max_abs_err": diff.max().item(), "tol": {"atol": atol, "rtol": rtol},
-              "within_tol": ok, "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
-              **_bound_parts(moved, flops)})
-        if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version on the {path} inputs")
-        out.setdefault("msda_fwd", {})[f"recorded_{path}_ms"] = k_ms
+def _hold_k1(path: str, rec: MsdaRecorder) -> float:
+    """K1 on the first encoder layer's inputs recorded on ``path`` against
+    the plain version with phase 2's tolerance; returns its time."""
+    (value, levels, loc, attn), plan = rec.fwd
+    value, loc, attn = (t.to(DEVICE) for t in (value, loc, attn))
+    got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn)
+    ref = ms_deform_attn_plain(value, levels, loc, attn)
+    torch.cuda.synchronize()
+    atol, rtol = MSDA_TOL[value.dtype]
+    diff = (got.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    k_ms = time_cuda(lambda: msda_cuda.ms_deform_attn_cuda(value, levels, loc, attn))
+    moved = nbytes(value, loc, attn, got)
+    flops = MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH
+    b_ms, b_by = bound(moved, flops)
+    emit({"phase": "k1_recorded_inputs", "path": path, "layer": 0,
+          "batch": value.shape[0], "levels": levels,
+          "dtypes": [str(t.dtype).replace("torch.", "") for t in (value, loc, attn)],
+          "plan": plan, "on_pixel_centres": _on_pixel_centres(levels, loc),
+          "max_abs_err": diff.max().item(), "tol": {"atol": atol, "rtol": rtol},
+          "within_tol": ok, "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+          **_bound_parts(moved, flops)})
+    if not ok:
+        raise AssertionError(f"K1 disagrees with its plain version on the {path} inputs")
+    return k_ms
 
-    (value, levels, loc, attn, g), plan = train_rec.dcoord
+
+def _hold_k2_k3(path: str, rec: MsdaRecorder):
+    """K2 and K3 on the first encoder layer's backward inputs recorded on
+    ``path`` (K3 takes K2's inputs) against the plain backward with phase
+    4's tolerances; returns (K2 ms, K3 ms, K3 device ms)."""
+    (value, levels, loc, attn, g), plan = rec.dcoord
     value, loc, attn, g = (t.to(DEVICE) for t in (value, loc, attn, g))
     dloc, dattn = msda_cuda.msda_dcoord_cuda(value, levels, loc, attn, g)
     dvalue = msda_cuda.msda_dvalue_cuda(value, levels, loc, attn, g)
@@ -699,7 +781,7 @@ def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
     flops = MSDA_FLOPS * _msda_in_range(levels, loc) * MSDA_CH
     b_ms, b_by = bound(moved, flops)
     k3_b = bound(nbytes(loc, attn, g, dvalue), 9.0 * _msda_in_range(levels, loc) * MSDA_CH)
-    emit({"phase": "k2_k3_recorded_inputs", "path": "train", "layer": 0,
+    emit({"phase": "k2_k3_recorded_inputs", "path": path, "layer": 0,
           "batch": value.shape[0], "levels": levels,
           "dtypes": [str(t.dtype).replace("torch.", "") for t in (value, loc, attn, g)],
           "plan": plan, **_k3_plan(value, levels, loc),
@@ -713,7 +795,18 @@ def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
           "k3_device_ms": k3_dev, "k3_bound_ms": k3_b[0], "k3_bound_by": k3_b[1],
           **{f"k2_{k}": v for k, v in _bound_parts(moved, flops).items()}})
     if not all(c[0] for c in checks.values()):
-        raise AssertionError("K2/K3 disagree with the plain backward on the train inputs")
+        raise AssertionError(f"K2/K3 disagree with the plain backward on the {path} inputs")
+    return k2_ms, k3_ms, k3_dev
+
+
+def phase_msda_recorded(eval_rec: MsdaRecorder, train_rec: MsdaRecorder):
+    """K1, K2 and K3 on the inputs the first encoder layer gave them on the
+    paths (phases 6 and 8: a full-width eval window and train step), against
+    the plain versions, timed beside their bounds; returns the kernels
+    line's recorded-input times."""
+    out = {"msda_fwd": {f"recorded_{path}_ms": _hold_k1(path, rec)
+                        for path, rec in (("eval", eval_rec), ("train", train_rec))}}
+    k2_ms, k3_ms, k3_dev = _hold_k2_k3("train", train_rec)
     out["msda_dvalue"] = {"recorded_train_ms": k3_ms, "recorded_train_device_ms": k3_dev}
     out["msda_dcoord"] = {"recorded_train_ms": k2_ms}
     return out
@@ -1226,8 +1319,8 @@ class EngineSpans:
                 return timed
             return made
 
-        def test_videos(cfg, name):
-            items = videos(cfg, name)
+        def test_videos(*args):
+            items = videos(*args)
             while True:
                 t0 = time.perf_counter()
                 try:
@@ -1485,6 +1578,509 @@ def phase_engine_vs_plain(root, cats):
         raise AssertionError(f"the card's engine run skipped a kernel: {launches}")
 
 
+class _TextBank:
+    """Seeded unit rows in place of the CLIP text bank (not ported yet)."""
+
+    def encode(self, names):
+        rng = np.random.RandomState(SEED + len(names))
+        text = rng.randn(len(names), TEXT_DIM).astype(np.float32)
+        return text / np.linalg.norm(text, axis=-1, keepdims=True)
+
+
+def _cli_data(root):
+    """The synthetic train and eval sets, registered; returns the config
+    overrides that point the recipe at them."""
+    ytvis19 = catalog.get("ytvis_2019_val")
+    cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
+    names = ("synthetic_ytvis_2019_train", "synthetic_coco_train", "synthetic_ytvis_2019_eval")
+    infos = (
+        dataclasses.replace(synthetic.write_ytvis_dataset(root, "ytvis_train", CLI_TRAIN_VIDEOS,
+                                                          cats, seed=SEED), eval_type="none"),
+        synthetic.write_coco_dataset(root, "coco_train", CLI_TRAIN_IMAGES, cats, seed=SEED + 1),
+        synthetic.write_ytvis_dataset(root, "ytvis_eval", CLI_EVAL_VIDEOS, cats, seed=SEED + 2),
+    )
+    for name, info in zip(names, infos):
+        catalog.register(dataclasses.replace(info, name=name))
+    return [f"datasets.root={root}", f"datasets.train=[{names[0]},{names[1]}]",
+            f"datasets.test=[{names[2]}]", f"solver.max_iter={CLI_MAX_ITER}",
+            f"solver.checkpoint_period={CLI_PERIOD}", "model.clip_adapter.clip_ensemble=false"]
+
+
+def _metrics_lines(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(x) for x in f]
+
+
+def _state_copy(state):
+    """A CPU copy of a TrainState's state dict."""
+    sd = state.state_dict()
+    return {k: ({n: t.cpu().clone() for n, t in v.items()} if isinstance(v, dict) else v)
+            for k, v in sd.items()}
+
+
+def _states_equal(a, b) -> bool:
+    return (a["step"] == b["step"] and a["count"] == b["count"]
+            and all(set(a[k]) == set(b[k]) and all(torch.equal(a[k][n], b[k][n]) for n in a[k])
+                    for k in ("params", "mu", "nu")))
+
+
+def _to_device(batch, device):
+    t = batch["targets"]
+    return {"pixels": batch["pixels"].to(device), "targets": t.to(device),
+            "text_feats": batch["text_feats"].to(device)}
+
+
+def _trace_busy(path):
+    """Device events of a ``torch.profiler`` Chrome trace: how many, and the
+    share of the span from the first to the last in which one runs."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        raise AssertionError(f"the trace {path} holds no device events")
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = end - spans[0][0]
+    return {"device_events": len(spans), "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "device_busy_share": busy / span}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_cli(card: str):
+    """The CLI at full width: train, resume, eval; then the resume, the
+    2-process and the NCCL checks.  Returns the launch counts of the train
+    run (1) and of the eval run (3), and the recorded-input kernel times."""
+    import train_net_torch as cli
+
+    # PyTorch's defaults, as a user runs the CLI (earlier phases switch TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    saves, restored = [], []
+    orig = cli.build_text_bank, cli.save_checkpoint, cli.restore_checkpoint
+
+    def timed_save(directory, step, state):
+        t0 = time.perf_counter()
+        path = orig[1](directory, step, state)
+        saves.append({"step": step, "ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": os.path.getsize(path)})
+        return path
+
+    def recorded_restore(src, state):
+        out = orig[2](src, state)
+        if out is not None:
+            restored.append(_state_copy(state))
+            restored[-1]["lr_next"] = state.opt.lr(state.opt.count)
+        return out
+
+    cli.build_text_bank = lambda cfg: _TextBank()
+    cli.save_checkpoint, cli.restore_checkpoint = timed_save, recorded_restore
+    try:
+        t0 = time.perf_counter()
+        common = _cli_data(root)
+        write_s = time.perf_counter() - t0
+        emit({"phase": "cli_setup", "config": CLI_CONFIG, "overrides": common + ["output_dir=..."],
+              "train_videos_hwtn": CLI_TRAIN_VIDEOS, "train_images_hwn": CLI_TRAIN_IMAGES,
+              "eval_videos_hwtn": CLI_EVAL_VIDEOS, "dataset_write_s": write_s})
+
+        def run(out, *flags, extra=()):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(["--config-file", CLI_CONFIG, *flags, *common, f"output_dir={out}", *extra])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, read_counts()
+
+        # 1. from scratch
+        out = os.path.join(root, "out")
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches = run(out)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lines = _metrics_lines(out)
+        cfg = load_config(CLI_CONFIG, common)
+        layers = cfg.model.transformer_decoder.dec_layers + 1
+        enc = cfg.model.pixel_decoder.transformer_enc_layers
+        h, w = cfg.input.pad_size
+        target_samplings = 3 if h * w <= KERNEL_MAX_HW else 0
+        per_step = {"msda_fwd": enc, "msda_dcoord": enc, "msda_dvalue": enc, "hungarian": 1,
+                    "point_sample_fwd": (3 + target_samplings) * layers,
+                    "point_sample_dvalue": 2 * layers}
+        expected = {k: v * CLI_MAX_ITER for k, v in per_step.items()}
+        ckpt_dir = os.path.join(out, "checkpoints")
+        steps_ms = [r["step_s"] * 1e3 for r in lines]
+        waits_ms = [r["data_wait_s"] * 1e3 for r in lines]
+        finite = all(np.isfinite(r[k]) for r in lines
+                     for k in ("total_loss", "loss_ce", "loss_mask", "loss_dice", "grad_norm"))
+        emit({"phase": "cli_train", "batch": [cfg.solver.ims_per_batch,
+                                              cfg.input.sampling_frame_num],
+              "points": cfg.model.criterion.train_num_points, "amp": cfg.solver.amp,
+              "steps": [r["step"] for r in lines], "ms_per_step": steps_ms,
+              "ms_per_step_after_first": float(np.mean(steps_ms[1:])),
+              "loader_wait_ms": waits_ms,
+              "loader_wait_ms_after_first": float(np.mean(waits_ms[1:])),
+              "losses": [r["total_loss"] for r in lines],
+              "grad_norms": [r["grad_norm"] for r in lines],
+              "checkpoint_saves": saves, "checkpoints": sorted(os.listdir(ckpt_dir)),
+              "peak_mem_gib": peak, "wall_s": wall, "launches": launches,
+              "expected_launches": expected, "card": card})
+        if launches != expected:
+            raise AssertionError(f"CLI train launches {launches} != {expected}")
+        if [r["step"] for r in lines] != list(range(1, CLI_MAX_ITER + 1)) or not finite:
+            raise AssertionError("the CLI's metrics.jsonl is not 6 finite steps")
+        if sorted(s["step"] for s in saves) != [CLI_PERIOD, CLI_MAX_ITER]:
+            raise AssertionError(f"checkpoints saved at {saves}")
+        train_launches = launches
+
+        # 2. --resume from the step-3 checkpoint
+        src = os.path.join(root, "resume_from")
+        os.makedirs(src)
+        ckpt3 = os.path.join(ckpt_dir, f"ckpt_{CLI_PERIOD:08d}.pt")
+        shutil.copy(ckpt3, src)
+        out2 = os.path.join(root, "out_resume")
+        traces = os.path.join(root, "trace")
+        # --profile-dir traces steps 4-6 (a run of under 14 steps traces its first 3)
+        wall2, launches2 = run(out2, "--resume", "--weights", src, "--profile-dir", traces)
+        lines2 = _metrics_lines(out2)
+        busy = _trace_busy(os.path.join(traces, "trace_rank0.json"))
+        file3 = load_checkpoint(src)
+        equal = len(restored) == 1 and _states_equal(restored[0], file3)
+        lr_next = restored[0]["lr_next"] if restored else None
+        emit({"phase": "cli_resume", "restored_step": restored[0]["step"] if restored else None,
+              "restored_equal_to_checkpoint_bitwise": equal, "lr_of_step_4": lr_next,
+              "steps": [r["step"] for r in lines2], "losses": [r["total_loss"] for r in lines2],
+              "latest_checkpoint": latest_step(os.path.join(out2, "checkpoints")),
+              "ms_per_step_traced": [r["step_s"] * 1e3 for r in lines2],
+              "profiler_trace_of_steps_4_6": busy, "wall_s": wall2, "launches": launches2,
+              "card": card})
+        del file3
+        if not equal or restored[0]["step"] != CLI_PERIOD:
+            raise AssertionError("the resumed state differs from its checkpoint")
+        if [r["step"] for r in lines2] != list(range(CLI_PERIOD + 1, CLI_MAX_ITER + 1)) or \
+                not all(np.isfinite(r["total_loss"]) for r in lines2) or \
+                min(launches2.values()) == 0:
+            raise AssertionError(f"the resumed run did not continue: {lines2}, {launches2}")
+        restored.clear()
+
+        # 3. --eval-only from the checkpoints
+        wall3, launches3 = run(out, "--eval-only", "--weights", ckpt_dir)
+        ds = cfg.datasets.test[0]
+        files = {k: os.path.exists(os.path.join(out, f"{k}_{ds}.json"))
+                 for k in ("metrics", "results")}
+        with open(os.path.join(out, f"metrics_{ds}.json")) as f:
+            metrics = json.load(f)
+        expected3 = {**{k: 0 for k in launches3},
+                     "msda_fwd": enc * len(CLI_EVAL_VIDEOS), "hungarian": len(CLI_EVAL_VIDEOS)}
+        emit({"phase": "cli_eval", "metrics": metrics, "files": files, "wall_s": wall3,
+              "launches": launches3, "expected_launches": expected3, "card": card})
+        if not all(files.values()) or not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the CLI's eval wrote {files}, {metrics}")
+        if launches3 != expected3:
+            raise AssertionError(f"CLI eval launches {launches3} != {expected3}")
+
+        batches, recorded = _api_resume_check(cfg, root)
+        _dp_check(common, batches[0], root)
+
+        # 5. one step through --distributed under NCCL, a world of 1
+        out5 = os.path.join(root, "out_nccl")
+        wall5, launches5 = run(out5, "--distributed", "--coordinator", f"localhost:{_free_port()}",
+                               "--num-processes", "1", "--process-id", "0",
+                               extra=["solver.max_iter=1"])
+        lines5 = _metrics_lines(out5)
+        emit({"phase": "cli_nccl_world_1", "steps": [r["step"] for r in lines5],
+              "losses": [r["total_loss"] for r in lines5], "launches": launches5,
+              "process_group_destroyed": not torch.distributed.is_initialized(), "wall_s": wall5})
+        if [r["step"] for r in lines5] != [1] or not np.isfinite(lines5[0]["total_loss"]) or \
+                min(launches5.values()) == 0 or torch.distributed.is_initialized():
+            raise AssertionError("the NCCL step did not run")
+        return train_launches, launches3, recorded
+    finally:
+        cli.build_text_bank, cli.save_checkpoint, cli.restore_checkpoint = orig
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _fixed_batches(cfg, n):
+    loader = TrainLoader(cfg, seed=SEED)
+    try:
+        batches = [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+    k = len(catalog.get(cfg.datasets.train[0]).thing_classes)
+    text = torch.from_numpy(_TextBank().encode(range(k)))
+    return [dict(b, text_feats=text) for b in batches]
+
+
+def _fresh_step(cfg, seed, k):
+    model = init_params(train.build_model(cfg, DEVICE), seed=seed)
+    return train.build_train_step(cfg, model, k, DEVICE)
+
+
+def _hold_cli_recorded(msda_rec: MsdaRecorder, k4_rec: HungarianRecorder,
+                       sampler_rec: SamplerInputs) -> None:
+    """K1-K6 on the inputs one step of the CLI's recipe gave them (8 clips:
+    the first encoder layer's K1 and K2/K3 inputs, the matcher's costs, K5's
+    and K6's first call of each shape) against their plain versions, with
+    the tolerances of phases 2-6; returns the kernels line's times of K1,
+    K2 and K3 on these inputs."""
+    k1_ms = _hold_k1("cli_train", msda_rec)
+    k2_ms, k3_ms, k3_dev = _hold_k2_k3("cli_train", msda_rec)
+    plain = _plain_assignments(k4_rec.costs)
+    cols = [c for batch_cols in k4_rec.cols for c in batch_cols]
+    differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols)) if not torch.equal(ref, got)]
+    steps = [n for _, n in plain]
+    emit({"phase": "k4_recorded_inputs", "path": "cli_train",
+          "shapes": [list(c.shape) for c in k4_rec.costs], "equal_to_plain": not differ,
+          "problems_differing": differ,
+          "steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)}})
+    if differ or len(k4_rec.costs) != 1:
+        raise AssertionError(f"K4 on the CLI step's costs differs from hungarian_plain: {differ}")
+    for shape, (maps, coords) in sorted(sampler_rec.fwd.items()):
+        maps, coords = maps.to(DEVICE), coords.to(DEVICE)
+        got = point_sample_cuda.point_sample_fwd_cuda(maps, coords)
+        ref = sample_maps_shared_plain(maps, coords, f32_policy=True)
+        torch.cuda.synchronize()
+        ok, err, rel = _check_close(got, ref, SAMPLER_REL_TO_MAX, SAMPLER_RTOL)
+        emit({"phase": "k5_recorded_inputs", "path": "cli_train", "maps_points": shape,
+              "dtype": str(maps.dtype).replace("torch.", ""), "within_tol": ok,
+              "max_abs_err": err, "max_err_rel_to_max": rel,
+              "tol": {"rel_to_max": SAMPLER_REL_TO_MAX, "rtol": SAMPLER_RTOL}})
+        if not ok:
+            raise AssertionError(f"K5 disagrees with the plain sampler on the CLI step's {shape}")
+    for shape, (coords, grad, map_shape, dtype) in sorted(sampler_rec.dvalue.items()):
+        coords, grad = coords.to(DEVICE), grad.to(DEVICE)
+        got = point_sample_cuda.point_sample_dvalue_cuda(coords, grad, map_shape, dtype)
+        ref = sample_maps_dvalue_plain(torch.empty(map_shape, dtype=dtype, device=DEVICE),
+                                       coords, grad)
+        torch.cuda.synchronize()
+        ok, err, rel = _check_close(got, ref, BWD_REL_TO_MAX, BWD_RTOL[dtype])
+        emit({"phase": "k6_recorded_inputs", "path": "cli_train", "maps_points": shape,
+              "dtype": str(dtype).replace("torch.", ""), "within_tol": ok,
+              "max_abs_err": err, "max_err_rel_to_max": rel,
+              "tol": {"rel_to_max": BWD_REL_TO_MAX, "rtol": BWD_RTOL[dtype]}})
+        if not ok:
+            raise AssertionError(f"K6 disagrees with the plain sampler on the CLI step's {shape}")
+    if not sampler_rec.fwd or not sampler_rec.dvalue:
+        raise AssertionError("the CLI step launched no K5 or no K6")
+    return {"msda_fwd": {"recorded_cli_train_ms": k1_ms},
+            "msda_dcoord": {"recorded_cli_train_ms": k2_ms},
+            "msda_dvalue": {"recorded_cli_train_ms": k3_ms,
+                            "recorded_cli_train_device_ms": k3_dev}}
+
+
+def _metrics(step, batch):
+    return {k: v.item() for k, v in step(_to_device(batch, DEVICE)).items()}
+
+
+def _run_steps(cfg, k, batches, seed=SEED, start=None, tamper=None):
+    """A fresh train step from the seeded init, restored from ``start`` (a
+    checkpoint directory) and passed to ``tamper`` if given, run over
+    ``batches``; returns it and its first step's metrics."""
+    step = _fresh_step(cfg, seed, k)
+    if start is not None:
+        restore_checkpoint(start, step.state)
+    if tamper is not None:
+        tamper(step.state)
+    metrics = [_metrics(step, b) for b in batches]
+    return step, metrics[0]
+
+
+def _zero_mu(state):
+    for t in state.opt.mu.values():
+        t.zero_()
+
+
+def _stream_off_by_one(state):
+    state.step += 1
+
+
+def _api_resume_check(cfg, root):
+    """2 + 2 steps through a checkpoint against 4 uninterrupted, on fixed
+    loader batches, in the recipe's bf16 AMP.  The resumed state must equal
+    the checkpoint bit for bit.  Step 3 then starts from the same state in
+    both runs, so its mask losses (point-sampled) must agree within
+    ``CLI_RESUME_LOSS_RTOL``.  K3/K6's atomics make any two runs' updates
+    differ, so the final parameters are held by their distance over the norm
+    of the uninterrupted run's update, within ``CLI_RESUME_UPDATE_DIFF``,
+    which lies above this card's noise floor (a second uninterrupted run).
+    Two faulty resumes must fail: AdamW's ``mu`` zeroed (the distance) and
+    the step's stream one step off (the losses).  The first step's K1-K6
+    inputs are recorded and held against the plain versions.  Returns the
+    batches (on the host) and ``_hold_cli_recorded``'s times."""
+    batches = _fixed_batches(cfg, 4)
+    k = batches[0]["text_feats"].shape[0]
+    d = os.path.join(root, "api_ckpt")
+    whole = _fresh_step(cfg, SEED, k)
+    init = {n: p.detach().clone() for n, p in whole.state.model.named_parameters()}
+    with MsdaRecorder() as msda_rec, HungarianRecorder() as k4_rec, \
+            SamplerInputs() as sampler_rec:
+        _metrics(whole, batches[0])
+    _metrics(whole, batches[1])
+    save_checkpoint(d, whole.state.step, whole.state.state_dict())
+    saved = _state_copy(whole.state)
+    step3 = _metrics(whole, batches[2])
+    _metrics(whole, batches[3])
+    final = {n: p.detach() for n, p in whole.state.model.named_parameters()}
+    upd = sum(((final[n] - init[n]).double() ** 2).sum().item() for n in final) ** 0.5
+    del init
+
+    def read(step, first):
+        """The run's distance from ``whole`` and, if ``first`` holds its
+        step 3's metrics, their mask losses' difference from ``whole``'s."""
+        out = {"update_diff_rel_norm": sum(
+            ((p.detach() - final[n]).double() ** 2).sum().item()
+            for n, p in step.state.model.named_parameters()) ** 0.5 / upd,
+            "count": step.state.opt.count}
+        if first is not None:
+            out["step3_mask_loss_rel_diff"] = max(abs(first[k_] - step3[k_]) / abs(step3[k_])
+                                                  for k_ in ("loss_mask", "loss_dice"))
+        return out
+
+    noise = read(_run_steps(cfg, k, batches)[0], None)
+    torch.cuda.empty_cache()
+    resumed = _fresh_step(cfg, SEED + 1, k)
+    restore_checkpoint(d, resumed.state)
+    equal = _states_equal(_state_copy(resumed.state), saved)
+    del saved
+    first = _metrics(resumed, batches[2])
+    _metrics(resumed, batches[3])
+    got = read(resumed, first)
+    del resumed
+    faults = {}
+    for name, fault in (("mu_zeroed", _zero_mu), ("stream_off_by_one", _stream_off_by_one)):
+        torch.cuda.empty_cache()
+        faults[name] = read(*_run_steps(cfg, k, batches[2:], SEED + 1, d, fault))
+    limit, loss_tol = CLI_RESUME_UPDATE_DIFF, CLI_RESUME_LOSS_RTOL
+    emit({"phase": "cli_resume_vs_uninterrupted", "steps": [2, 2], "against": 4,
+          "dtype": "bf16 AMP", "restored_equal_bitwise": equal, "resumed": got,
+          "noise_floor_second_uninterrupted": noise, "faulty_resumes": faults,
+          "limits": {"update_diff_rel_norm": limit, "step3_mask_loss_rel_diff": loss_tol},
+          "update_norm": upd, "uninterrupted_count": whole.state.opt.count})
+    del whole, final
+    torch.cuda.empty_cache()
+    if not equal or got["count"] != 4 or got["update_diff_rel_norm"] > limit or \
+            got["step3_mask_loss_rel_diff"] > loss_tol:
+        raise AssertionError("2 + 2 resumed steps disagree with 4 uninterrupted")
+    if noise["update_diff_rel_norm"] > limit or \
+            faults["mu_zeroed"]["update_diff_rel_norm"] <= limit or \
+            faults["stream_off_by_one"]["step3_mask_loss_rel_diff"] <= loss_tol:
+        raise AssertionError(f"the resume check's limits do not part the noise floor {noise} "
+                             f"from the faulty resumes {faults}")
+    return batches, _hold_cli_recorded(msda_rec, k4_rec, sampler_rec)
+
+
+def _step_with_grads(cfg, batch, k):
+    """One step from the seeded init: (metrics, the reduced gradients on the
+    host, launches)."""
+    step = _fresh_step(cfg, SEED, k)
+    grads, opt_step = {}, step.state.opt.step
+
+    def recording(params, g, norm=None):
+        grads.update({n: v.float().cpu() for n, v in g.items()})
+        opt_step(params, g, norm)
+
+    step.state.opt.step = recording
+    reset_counts()
+    metrics = {k_: v.item() for k_, v in step(_to_device(batch, DEVICE)).items()}
+    return metrics, grads, read_counts()
+
+
+def _dp_configs(cfg):
+    return {"float32": dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False)),
+            "bf16 AMP": cfg}
+
+
+def dp_rank(args_json: str) -> None:
+    """One of the 2 gloo processes on the card (run as a script by phase 11)."""
+    a = json.loads(args_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(CLI_CONFIG, a["overrides"])
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{a['rendezvous']}",
+                                         world_size=2, rank=a["rank"])
+    try:
+        batch = torch.load(a["batch"], weights_only=False)
+        b = batch["pixels"].shape[0] // 2
+        t = batch["targets"]
+        s = slice(a["rank"] * b, (a["rank"] + 1) * b)
+        part = {"pixels": batch["pixels"][s], "text_feats": batch["text_feats"],
+                "targets": ClipTargets(t.labels[s], t.masks[s], t.valid[s], t.frame_valid[s])}
+        out = {name: _step_with_grads(c, part, batch["text_feats"].shape[0])
+               for name, c in _dp_configs(cfg).items()}
+    finally:
+        torch.distributed.destroy_process_group()
+    if a["rank"] == 0:
+        torch.save(out, a["result"])
+
+
+def _dp_check(overrides, batch, root):
+    """One step of the global batch on 2 gloo processes on the card against
+    1 process, f32 (TF32 off) and bf16 AMP."""
+    cfg = load_config(CLI_CONFIG, overrides)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k = batch["text_feats"].shape[0]
+    t0 = time.perf_counter()
+    one = {name: _step_with_grads(c, batch, k) for name, c in _dp_configs(cfg).items()}
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    path = os.path.join(root, "dp_batch.pt")
+    torch.save(batch, path)
+    args = {"overrides": overrides, "rendezvous": os.path.join(root, "dp_rdv"), "batch": path,
+            "result": os.path.join(root, "dp_rank0.pt")}
+    code = "import sys, chip_smoke as c; c.dp_rank(sys.argv[1])"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, json.dumps(dict(args, rank=r))],
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(2)]
+    try:
+        codes = [p.wait(timeout=DP_JOIN_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_s = time.perf_counter() - t0
+    if any(codes):
+        raise AssertionError(f"the gloo processes exited with {codes}")
+    two = torch.load(args["result"], weights_only=False)
+    report, ok = {}, True
+    for name, ((m1, g1, l1), (m2, g2, l2)) in ((n, (one[n], two[n])) for n in one):
+        tol = DP_TOL[name]
+        loss_rel = {k_: abs(m2[k_] - m1[k_]) / max(abs(m1[k_]), 1e-30)
+                    for k_ in ("total_loss", "loss_ce", "loss_mask", "loss_dice")}
+        norm_rel = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+        num = sum(((g2[n] - g) ** 2).sum().item() for n, g in g1.items())
+        den = sum((g ** 2).sum().item() for g in g1.values())
+        # k_proj biases have an exact gradient of 0 (softmax is shift-invariant)
+        worst = max((((g2[n] - g).abs().max() / g.abs().max()).item(), n)
+                    for n, g in g1.items() if not n.endswith("k_proj.bias"))
+        diff_rel = (num / den) ** 0.5
+        good = (max(loss_rel.values()) <= tol["loss_rtol"] and norm_rel <= tol["grad_norm_rtol"]
+                and diff_rel <= tol["grad_diff_rel_norm"] and set(g1) == set(g2))
+        ok = ok and good
+        report[name] = {"losses_1_2": {k_: [m1[k_], m2[k_]] for k_ in loss_rel},
+                        "loss_rel_err": loss_rel,
+                        "grad_norm_1_2": [m1["grad_norm"], m2["grad_norm"]],
+                        "grad_norm_rel_err": norm_rel, "grad_diff_rel_norm": diff_rel,
+                        "worst_tensor_err_rel_to_its_max": worst, "launches_1": l1,
+                        "launches_rank0": l2, "tol": tol, "ok": good}
+    emit({"phase": "cli_two_processes_vs_one",
+          "backend": "gloo",
+          "global_batch": batch["pixels"].shape[0], "per_process": batch["pixels"].shape[0] // 2,
+          "one_process_s": one_s, "two_processes_s": two_s, **report})
+    if not ok:
+        raise AssertionError("2 processes disagree with 1")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -1507,6 +2103,9 @@ def main() -> int:
         fields[name].update(extra)
     phase_train_vs_plain()
     engine_launches = phase_engine(card)
+    cli_launches, cli_eval_launches, cli_recorded = phase_cli(card)
+    for name, extra in cli_recorded.items():
+        fields[name].update(extra)
     leaked = [m for m in ("jax", "openvis_tpu") if m in sys.modules]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -1522,7 +2121,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"openvis_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": train_launches[name],
          "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name],
-                              "engine": engine_launches[name]},
+                              "engine": engine_launches[name], "cli_train": cli_launches[name],
+                              "cli_eval": cli_eval_launches[name]},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -22,18 +22,23 @@ frames:
   on bf16 copies of its parameters, so the caller's f32 parameters are never
   touched.
 
+Under a process group (``parallel/dist.py``) process p reads and evaluates
+videos p, p + P, ... (``max_videos`` counted globally); rank 0 gathers the
+predictions (``torch.distributed``, no shared file system) and scores them;
+the other processes return ``{}``.
+
 Everything the JAX engine dispatches elsewhere (BriVIS, the offline archs,
-OpenVIS, OV2Seg, the CLIP ensemble, BURST, multi-process eval) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+OpenVIS, OV2Seg, the CLIP ensemble, BURST) raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
-import itertools
 import json
 import logging
 import os
-from typing import Callable, Dict, Optional
+from itertools import accumulate
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,6 +50,7 @@ from openvis_tpu_torch.evals.ytvis_eval import YTVISEvaluator
 from openvis_tpu_torch.models.meta.simple_baseline import eval_scores
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
+from openvis_tpu_torch.parallel import dist
 from openvis_tpu_torch.train import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -153,9 +159,12 @@ def _check_ported(cfg: Config, clip_visual_apply) -> None:
         raise _not_ported(f"the evaluation of {arch!r}", _ITEM_OF_ARCH.get(arch, 8))
     if clip_visual_apply is not None:
         raise _not_ported("the CLIP visual tower and the mask-crop ensemble", 4)
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise _not_ported("multi-process evaluation", 3)
+
+
+def build_clip_visual(cfg: Config):
+    """The frozen CLIP visual tower of the mask-crop ensemble (the JAX
+    engine's ``build_clip_visual``)."""
+    raise _not_ported("the CLIP visual tower and the mask-crop ensemble", 4)
 
 
 def evaluate_dataset(
@@ -170,7 +179,9 @@ def evaluate_dataset(
     """Evaluate ``model`` (built by ``train.build_model``) on a registered
     dataset with text embeddings ``text_feats`` (K, D) and return the
     evaluator's metrics.  Runs on ``device`` (the card unless the caller
-    passes ``"cpu"``); the model's parameters are read, never modified."""
+    passes ``"cpu"``); the model's parameters are read, never modified.
+    Under a process group every process calls it; rank 0 returns the metrics
+    of all the processes' videos, the others ``{}``."""
     _check_ported(cfg, clip_visual_apply)
     device = resolve_device(device)
     evaluator = make_evaluator(catalog.get(dataset_name))
@@ -181,8 +192,10 @@ def evaluate_dataset(
     window_fn = make_window_fn(cfg, model)
     post_fn = make_postprocess_fn(cfg)
 
+    counts = []  # predictions of each video, in this process's order
     with torch.inference_mode():
-        for rec, sample in itertools.islice(test_videos(cfg, dataset_name), max_videos):
+        for rec, sample in test_videos(cfg, dataset_name, max_videos, dist.rank(),
+                                       dist.world()):
             pixels = sample["pixels"]                          # (T, H, W, 3) numpy
             t = pixels.shape[0]
             # the uploads do not wait for the stream: a blocking copy would
@@ -196,15 +209,35 @@ def evaluate_dataset(
             del parts
             topk = post_fn(logits, masks, embeds)
             del logits, masks, embeds
+            n = len(evaluator.predictions)
             evaluator.process(rec["video_id"], topk, sample["image_size"],
                               sample["orig_size"], pixels.shape[1:3])
-    return _finalize(cfg, dataset_name, evaluator)
+            counts.append(len(evaluator.predictions) - n)
+    return _finalize(cfg, dataset_name, evaluator, counts)
 
 
-def _finalize(cfg: Config, dataset_name: str, evaluator: YTVISEvaluator) -> Dict[str, float]:
-    """Dump the raw predictions next to the metrics (ytvis_eval.py:136-175)
-    and score them against the dataset's GT json; one process."""
+def _record_order(parts: List[Tuple[List[Dict], List[int]]]) -> List[Dict]:
+    """Process p evaluated records p, p + P, ... (``test_videos``): interleave
+    the processes' runs of per-video predictions back into record order."""
+    runs = []
+    for preds, counts in parts:
+        runs.append([preds[e - c:e] for c, e in zip(counts, accumulate(counts))])
+    return [p for j in range(max(map(len, runs))) for run in runs if j < len(run)
+            for p in run[j]]
+
+
+def _finalize(cfg: Config, dataset_name: str, evaluator: YTVISEvaluator,
+              counts: List[int]) -> Dict[str, float]:
+    """Gather the predictions on rank 0 (in record order, as one process
+    makes them; ``counts``: this process's predictions of each of its
+    videos), dump them next to the metrics (ytvis_eval.py:136-175) and score
+    them against the dataset's GT json; ``{}`` on the other ranks."""
     info = catalog.get(dataset_name)
+    if dist.initialized():
+        parts = dist.gather_to_rank0((evaluator.predictions, counts))
+        if parts is None:
+            return {}
+        evaluator.predictions = _record_order(parts)
     if cfg.output_dir:
         os.makedirs(cfg.output_dir, exist_ok=True)
         path = os.path.join(cfg.output_dir, f"results_{dataset_name}.json")

@@ -20,6 +20,14 @@ The points come from an explicit ``torch.Generator`` through one argument,
 ``sorted_uniform_points``), so a test can hand both packages the same points.
 The L layers' cost matrices are solved in ONE Hungarian call of (L*B, N, Q)
 problems.  Not ported yet: ``tracking_match`` and the SAN/BriVIS branches.
+
+Global-batch semantics under a process group (``parallel/dist.py``), as the
+JAX step computes the loss of the global array: each process holds B of the
+global batch's world * B items; every process draws the points of all world *
+B items from the same stream and keeps its own slice; ``num_masks`` and the
+CE loss's weight sum are sums over the processes (not averages over them, as
+the reference's Mask2Former takes).  Each process's losses are then its share
+of the global batch's, and their sum over the processes is the global loss.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from openvis_tpu_torch.ops.point_sample import (
     sorted_uniform_points,
 )
 from openvis_tpu_torch.ops.select import kth_largest
+from openvis_tpu_torch.parallel import dist
 from openvis_tpu_torch.structures import ClipTargets
 
 # (B, P) -> (B, P, 2) points on the device of the maps
@@ -128,8 +137,10 @@ def match(draw: Draw, pred_logits, pred_masks, targets: ClipTargets,
     return batched_hungarian(cost)
 
 
-def _loss_labels(pred_logits: torch.Tensor, assignment: torch.Tensor,
-                 targets: ClipTargets, s: CriterionSettings) -> torch.Tensor:
+def _class_targets(pred_logits: torch.Tensor, assignment: torch.Tensor,
+                   targets: ClipTargets, s: CriterionSettings
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, Q) target class of every query and its CE weight."""
     b, q, c1 = pred_logits.shape
     no_object = c1 - 1
     # matched queries get their target's class; invalid slots write into a
@@ -137,10 +148,18 @@ def _loss_labels(pred_logits: torch.Tensor, assignment: torch.Tensor,
     tc = torch.full((b, q + 1), no_object, dtype=torch.int64, device=pred_logits.device)
     upd = torch.where(targets.valid, assignment, torch.full_like(assignment, q))
     tc = tc.scatter(1, upd, targets.labels.to(torch.int64))[:, :q]
+    return tc, torch.where(tc == no_object, s.eos_coef, 1.0)
+
+
+def _loss_labels(pred_logits: torch.Tensor, assignment: torch.Tensor,
+                 targets: ClipTargets, s: CriterionSettings,
+                 weight_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted CE over the classes, divided by ``weight_sum`` (default: the
+    sum of this batch's weights)."""
+    tc, wgt = _class_targets(pred_logits, assignment, targets, s)
     logp = torch.log_softmax(pred_logits.float(), dim=-1)
     nll = -torch.gather(logp, 2, tc[..., None])[..., 0]
-    wgt = torch.where(tc == no_object, s.eos_coef, 1.0)
-    return (wgt * nll).sum() / wgt.sum()
+    return (wgt * nll).sum() / (wgt.sum() if weight_sum is None else weight_sum)
 
 
 def _loss_masks(
@@ -207,8 +226,9 @@ def _loss_masks(
 
 
 def num_masks_normalizer(targets: ClipTargets) -> torch.Tensor:
-    """Valid-instance count, clamped >= 1 (one process: no all-reduce)."""
-    return targets.valid.float().sum().clamp(min=1.0)
+    """Valid-instance count of the global batch (summed over the processes),
+    clamped >= 1."""
+    return dist.all_reduce_sum(targets.valid.float().sum()).clamp(min=1.0)
 
 
 def set_criterion(
@@ -225,9 +245,12 @@ def set_criterion(
     num_layers = pred_masks_all.shape[0]
     b, n = targets.labels.shape
     dev = pred_masks_all.device
+    rank, world = dist.rank(), dist.world()
 
     def draw(batch: int, p: int) -> torch.Tensor:
-        return draw_points(generator, (batch,), p).to(dev)
+        # the global batch's points; this process keeps its slice
+        pts = draw_points(generator, (batch * world,), p)
+        return pts[rank * batch:(rank + 1) * batch].to(dev)
 
     nm = num_masks_normalizer(targets)
     tgt_t = target_rows_t(targets)
@@ -241,13 +264,20 @@ def set_criterion(
         costs = [match_costs(draw, *layer_inputs(i), targets, s, tgt_t)
                  for i in range(num_layers)]
     assignments = batched_hungarian(torch.cat(costs)).view(num_layers, b, n)
+    class_loss = pred_logits_all is not None and s.use_class_loss
+    weight_sums = [None] * num_layers
+    if class_loss and dist.initialized():
+        # the global batch's CE weight sums, all layers in one reduction
+        weight_sums = dist.all_reduce_sum(torch.stack(
+            [_class_targets(layer_inputs(i)[0], assignments[i], targets, s)[1].sum()
+             for i in range(num_layers)])).unbind()
 
     lcs, lms, lds = [], [], []
     for i in range(num_layers):
         logits, masks = layer_inputs(i)
         lm, ld = _loss_masks(draw, masks, assignments[i], targets, nm, s, tgt_t)
-        if logits is not None and s.use_class_loss:
-            lc = _loss_labels(logits, assignments[i], targets, s)
+        if class_loss:
+            lc = _loss_labels(logits, assignments[i], targets, s, weight_sums[i])
         else:
             lc = torch.zeros((), device=dev)
         lcs.append(lc)

@@ -1,6 +1,6 @@
 """Optimizer and train step.
 
-Port of ``openvis_tpu/parallel/train_step.py`` for one process:
+Port of ``openvis_tpu/parallel/train_step.py``:
 
   * ``label_params``: each parameter's group, by the JAX package's rules read
     off its flax path (``convert.flax_path``: the port's ``weight`` is flax's
@@ -13,9 +13,17 @@ Port of ``openvis_tpu/parallel/train_step.py`` for one process:
     norm + 1e-6 as ``torch.nn.utils.clip_grad_norm_`` does), then per group
     ``scale_by_adam`` -> ``add_decayed_weights`` -> ``-lr * multiplier``
     (backbone x0.1; weight decay 0 for norms, biases and embeddings);
-  * ``make_train_step``: loss, gradients, update; returns the metrics.
+  * ``TrainState``: the step, the f32 master parameters and the AdamW state,
+    with ``state_dict`` / ``load_state_dict`` for checkpoints;
+  * ``TrainStep``: loss, gradients, their sum over the processes
+    (``parallel/dist.py``), the global gradient norm (once), the update;
+    returns the metrics of the global batch.
 
-The update runs in place on the f32 master parameters.
+The update runs in place on the f32 master parameters.  Under a process group
+each process computes its share of the global batch's loss (the criterion
+normalises by global counts), so the gradients and the metrics are SUMMED over
+the processes: the JAX step differentiates the global batch's loss
+(``__graft_entry__.py:151-160``: N devices give the loss of 1).
 """
 
 from __future__ import annotations
@@ -23,11 +31,13 @@ from __future__ import annotations
 import re
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
+from openvis_tpu_torch.parallel import dist
 
 
 def _backbone_stage(segment: str) -> Optional[int]:
@@ -147,10 +157,12 @@ class AdamW:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]) -> None:
-        """One update in place.  ``grads`` holds every non-frozen name."""
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+             grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update in place.  ``grads`` holds every non-frozen name;
+        ``grad_norm``: their global norm, if the caller has it."""
         if self.clip is not None:
-            g_norm = global_norm(grads.values())
+            g_norm = global_norm(grads.values()) if grad_norm is None else grad_norm
             keep = g_norm < self.clip
             grads = {n: torch.where(keep, g, (g / g_norm) * self.clip)
                      for n, g in grads.items()}
@@ -169,22 +181,81 @@ class AdamW:
             p.add_(u, alpha=-(lr * mult))
 
 
-def make_train_step(loss_fn: Callable, model: nn.Module, opt: AdamW) -> Callable:
-    """loss_fn(params, batch, generator) -> (total_loss, metrics).  The step
-    returns the metrics with ``total_loss`` and the pre-clip ``grad_norm``."""
+    def state_dict(self) -> Dict:
+        return {"mu": dict(self.mu), "nu": dict(self.nu), "count": self.count}
 
-    def step(batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        for name in ("mu", "nu"):
+            mine, theirs = getattr(self, name), state[name]
+            if set(mine) != set(theirs):
+                raise KeyError(f"AdamW {name}: {sorted(set(mine) ^ set(theirs))[:3]} differ")
+            for n, t in mine.items():
+                t.copy_(theirs[n])
+        self.count = int(state["count"])
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s random stream: a function of (seed, step)
+    only, as JAX's ``fold_in(rng, state.step)``, so a resumed run draws what
+    an uninterrupted one draws."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+class TrainState:
+    """The step, the model's f32 master parameters (frozen ones included) and
+    the AdamW state; updated in place by the step."""
+
+    def __init__(self, model: nn.Module, opt: AdamW, step: int = 0):
+        self.model, self.opt, self.step = model, opt, step
+
+    def state_dict(self) -> Dict:
+        """References to the live tensors: copy before the next step."""
+        return {"step": self.step,
+                "params": {n: p.detach() for n, p in self.model.named_parameters()},
+                **self.opt.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        params = dict(self.model.named_parameters())
+        if set(params) != set(state["params"]):
+            raise KeyError(f"params: {sorted(set(params) ^ set(state['params']))[:3]} differ")
+        for n, p in params.items():
+            p.copy_(state["params"][n])
+        self.opt.load_state_dict(state)
+        self.step = int(state["step"])
+
+
+class TrainStep:
+    """``step(batch, generator=None) -> metrics``: one update of ``state``.
+    Without a generator the step's points come from a stream seeded by
+    (``seed``, ``state.step``) on the parameters' device."""
+
+    def __init__(self, loss_fn: Callable, state: TrainState, seed: int):
+        self.loss_fn, self.state, self.seed = loss_fn, state, seed
+
+    def __call__(self, batch, generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, torch.Tensor]:
+        model, opt = self.state.model, self.state.opt
         params = dict(model.named_parameters())
-        loss, metrics = loss_fn(params, batch, generator)
+        if generator is None:
+            dev = next(iter(params.values())).device
+            generator = torch.Generator(device=dev).manual_seed(
+                step_seed(self.seed, self.state.step))
+        loss, metrics = self.loss_fn(params, batch, generator)
         names = list(opt.hyper)
         grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
-        grads = {n: (torch.zeros_like(params[n]) if g is None else g)
-                 for n, g in zip(names, grads)}
+        grads = [torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)]
+        keys = list(metrics)
+        scalars = [loss.detach(), *(metrics[k].detach() for k in keys)]
+        # one flat buffer: the gradients and the metrics summed over the
+        # processes together
+        *grads, scalars = dist.all_reduce_grads([*grads, torch.stack(scalars)])
+        grads = dict(zip(names, grads))
         grad_norm = global_norm(grads.values())
-        opt.step(params, grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["total_loss"] = loss.detach()
-        metrics["grad_norm"] = grad_norm.detach()
-        return metrics
-
-    return step
+        opt.step(params, grads, grad_norm)
+        self.state.step += 1
+        out = dict(zip(keys, scalars[1:]))
+        out["total_loss"] = scalars[0]
+        out["grad_norm"] = grad_norm
+        return out

@@ -2,7 +2,8 @@
 
 Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online): ``build_model``
 (``:25``), the loss closure ``make_loss_fn`` with its AMP rule (``:70-174``),
-the train step of ``openvis_tpu/parallel/train_step.py`` (``build_train_step``)
+the train step of ``openvis_tpu/parallel/train_step.py`` (``build_train_step``,
+one process or one of several over ``torch.distributed``)
 and ``make_eval_fn`` (``:177-203``).
 
 The entry points run on the card: ``device`` defaults to ``"cuda"``, and
@@ -29,8 +30,9 @@ from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embe
 from openvis_tpu_torch.ops.point_sample import sorted_uniform_points
 from openvis_tpu_torch.parallel.train_step import (
     AdamW,
+    TrainState,
+    TrainStep,
     config_labels,
-    make_train_step,
     stop_frozen_gradients,
 )
 
@@ -113,14 +115,17 @@ def make_loss_fn(cfg: Config, model: SimpleBaselineModel, num_text_classes: int,
 
 
 def build_train_step(cfg: Config, model: SimpleBaselineModel, num_text_classes: int,
-                     device="cuda", draw_points=sorted_uniform_points) -> Callable:
-    """Returns step(batch, generator) -> metrics (``total_loss``,
+                     device="cuda", draw_points=sorted_uniform_points) -> TrainStep:
+    """Returns step(batch, generator=None) -> metrics (``total_loss``,
     ``loss_ce``, ``loss_mask``, ``loss_dice``, ``grad_norm``).
 
-    The step owns the model's f32 parameters as masters and the AdamW state,
-    and updates them in place; frozen parameters get ``requires_grad=False``
-    and stay fixed.  The model is moved to ``device``; the batch must lie
-    there too."""
+    The step's ``state`` (``TrainState``: the step count, the model's f32
+    parameters as masters and the AdamW state) is updated in place; frozen
+    parameters get ``requires_grad=False`` and stay fixed.  Without a
+    generator the points come from a stream seeded by (``cfg.seed``, step).
+    Under a process group the batch is this process's slice of the global
+    batch and the metrics are the global batch's.  The model is moved to
+    ``device``; the batch must lie there too."""
     device = resolve_device(device)
     model.to(device).train()
     labels = config_labels(cfg, model)
@@ -130,8 +135,8 @@ def build_train_step(cfg: Config, model: SimpleBaselineModel, num_text_classes: 
     if bad:
         raise TypeError(f"the train step needs f32 master parameters, got {bad[:3]}")
     opt = AdamW(cfg, params, labels)
-    return make_train_step(make_loss_fn(cfg, model, num_text_classes, draw_points),
-                           model, opt)
+    loss_fn = make_loss_fn(cfg, model, num_text_classes, draw_points)
+    return TrainStep(loss_fn, TrainState(model, opt), cfg.seed)
 
 
 def make_eval_fn(cfg: Config, model: SimpleBaselineModel) -> Callable:
