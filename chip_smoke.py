@@ -58,8 +58,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      card (kernels) against the CPU (plain)
   11. the CLI (``train_net_torch.py``) at full width with the recipe
      ``configs/openvoc_ytvis_coco/simplebsl_online_R50_bs8_12000st.yaml``
-     (bf16 AMP, 8 one-frame clips a step, 12544 points), the text bank
-     replaced by seeded rows (the CLIP text tower is not ported): synthetic
+     (bf16 AMP, 8 one-frame clips a step, 12544 points), its text bank from
+     the CLIP text tower and its eval through the CLIP ensemble (random
+     ViT-B/16 weights in OpenAI's layout and a tiny BPE merge file, written
+     from the seed to a temporary directory): synthetic
      YTVIS (720x1280) and COCO (480x640) train sets mixed 1.0 : 0.75 and a
      small eval set, written to a temporary directory; (1) 6 steps from
      scratch with checkpoints at 3 and 6 (ms a step from CUDA events, the
@@ -72,11 +74,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      versions; one step of the global batch of 8 on 2 gloo processes (4
      clips each) against 1 process, in f32 and in bf16; and one step through
      ``--distributed`` under NCCL with a world of 1
+  12. SimpleBaselineOnline's CLIP ensemble through the engine over phase 10's
+     dataset at full width, bf16 AMP, with the recipe's ``clip_adapter``
+     (``bg_clip``, ViT-B/16, the vild prompts, weight 0.5) and phase 11's
+     CLIP files: the text bank of the 40 categories, a warm-up over the first
+     video, then the timed run with phase 10's split plus the CLIP crop
+     scoring, its ``roi_crop``s (device) and the text bank (host), its peak
+     and the K1/K4 launches; the full-width tower in f32 on 8 crops, card
+     against CPU, and the bf16 tower's time on a frame's 100 crops; the
+     whole ensemble engine at the test-tiny CLIP shape on phase 10's f32
+     check video, card (kernels) against CPU (plain)
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
-engine's whole-video run of phase 10 and the CLI's training and eval runs of
-phase 11), its error
+engine's whole-video run of phase 10, the CLI's training and eval runs of
+phase 11 and the ensemble's run of phase 12), its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -107,7 +119,7 @@ import torch
 import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
-from openvis_tpu_torch import Config, engine, train
+from openvis_tpu_torch import Config, clip_towers, engine, train
 from openvis_tpu_torch.checkpoint import (
     latest_step,
     load_checkpoint,
@@ -120,7 +132,10 @@ from openvis_tpu_torch.data import catalog, rle, synthetic
 from openvis_tpu_torch.data.loader import TrainLoader
 from openvis_tpu_torch.evals import ytvis_eval
 from openvis_tpu_torch.losses import criterion
+from openvis_tpu_torch.models import clip_adapter
 from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
+from openvis_tpu_torch.models.clip import synthetic as clip_synthetic
+from openvis_tpu_torch.models.clip.model import model_shape
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule
 from openvis_tpu_torch.ops import cuda_build, hungarian_cuda, msda_cuda, point_sample_cuda
 from openvis_tpu_torch.ops.hungarian import hungarian_plain
@@ -165,6 +180,7 @@ HUNGARIAN_CASES = {  # name -> (batch, rows, cols)
 }
 CHECK_FRAMES = 2     # phase 7 window
 TIMING_ITERS = 20
+PROFILE_WINDOWS = 4  # device_ms: profiler windows before it gives up
 # train path (phase 8): bench.py's simplebsl_online_r50_train_step batch
 TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_N = 2, 480, 864, 40
 TRAIN_STEPS = 3
@@ -261,6 +277,20 @@ ENGINE_BF16_MASK_AGREE = 0.98
 ENGINE_F32_SCORE_ATOL = SLICE_SCORE_ATOL
 ENGINE_F32_MASK_AGREE = 0.999
 ENGINE_F32_METRIC_ATOL = 0.05
+# phase 12: SimpleBaselineOnline's CLIP ensemble over phase 10's dataset with
+# the recipe's clip_adapter (CLI_CONFIG: bg_clip, ViT-B/16, the vild prompts,
+# weight 0.5), random ViT-B/16 weights in OpenAI's layout from the seed and a
+# tiny BPE merge file (neither OpenAI's weights nor its vocabulary are in the
+# repository)
+BF16_FLOPS = 989e12       # H100 SXM dense bf16 peak (the tower's products)
+CLIP_TOWER_CROPS = 8      # the full-width tower in f32, card against CPU
+# 12 blocks of f32 products (TF32 off) summed in another order on the card:
+# the features within 1e-4 of their largest element
+CLIP_TOWER_REL_TO_MAX = 1e-4
+# the whole ensemble engine, card against CPU in f32, at the test-tiny CLIP
+# shape (a ViT-B/16 on 700 crops would take minutes on the CPU) on phase
+# 10's check video, held to phase 10's f32 bounds
+ENSEMBLE_CHECK_CLIP = "test-tiny"
 # phase 11: the CLI with the recipe, on synthetic data in the YTVIS-2019
 # taxonomy (40 categories): videos at YTVIS-2019's common 720x1280, COCO
 # images at COCO's common 480x640
@@ -314,21 +344,29 @@ def device_ms(fn, kernel: str, iters: int = TIMING_ITERS) -> float:
     """Mean device time of one launch of the kernel whose name contains
     ``kernel``, from ``torch.profiler``'s CUDA kernel events over ``iters``
     calls of ``fn`` after warm-up: the kernel alone, without the wrapper's
-    host work or its other launches (zeroing, casts)."""
+    host work or its other launches (zeroing, casts).
+
+    The profiler may drop kernel events of a window (one at its edge is
+    common; an H100 run once saw 8 of 20), so a window that saw fewer than
+    half of the calls' launches, or more launches than calls, is profiled
+    again, up to ``PROFILE_WINDOWS`` times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    # the profiler may drop an event at the edge of its window
-    if not iters // 2 <= len(us) <= iters:
-        raise AssertionError(f"the profiler saw {len(us)} launches of {kernel} in {iters} calls")
-    return sum(us) / len(us) / 1e3
+    seen = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if iters // 2 <= len(us) <= iters:
+            return sum(us) / len(us) / 1e3
+        seen.append(len(us))
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in {PROFILE_WINDOWS} "
+                         f"windows of {iters} calls")
 
 
 def bound(nbytes: float, flops: float):
@@ -973,8 +1011,8 @@ def _full_config(**solver):
         solver=dataclasses.replace(cfg.solver, **solver))
 
 
-def _text(rng):
-    text = rng.randn(K_CLASSES, TEXT_DIM).astype(np.float32)
+def _text(rng, dim=TEXT_DIM):
+    text = rng.randn(K_CLASSES, dim).astype(np.float32)
     return text / np.linalg.norm(text, axis=-1, keepdims=True)
 
 
@@ -1280,20 +1318,27 @@ class EngineSpans:
     encoding (``rle``), and of ``_finalize``; CUDA events around each model
     window and around tracking + top-k (device time); the frames; and each
     prediction with the track (frame-0 query) it came from and each video's
-    track indices (T, Q), left on the device until ``track_indices``."""
+    track indices (T, Q), left on the device until ``track_indices``.  With
+    the CLIP ensemble: CUDA events around each video's ensemble (tracking,
+    CLIP crop scores, the ensemble and top-k), around its CLIP crop scoring
+    and around each ``roi_crop``."""
 
     PATCHED = ((engine, "test_videos"), (engine, "make_window_fn"),
                (engine, "make_postprocess_fn"), (engine, "_finalize"),
                (ytvis_eval, "threshold_masks"), (rle, "encode_transposed"),
-               (ytvis_eval.YTVISEvaluator, "process"), (engine, "track_by_embeds"))
+               (ytvis_eval.YTVISEvaluator, "process"), (engine, "track_by_embeds"),
+               (engine, "make_ensemble_fn"), (clip_towers, "clip_crop_scores"),
+               (clip_adapter, "roi_crop"))
 
     def __enter__(self):
         self.host = collections.Counter()
-        self.events = {"windows": [], "tracking_topk": []}
+        self.events = {"windows": [], "tracking_topk": [], "ensemble_topk": [],
+                       "clip_crops": [], "roi_crop": []}
         self.frames, self.preds = 0, []   # preds: (video, track, category, score, segs)
         self._tracks = []
         self._orig = [getattr(obj, name) for obj, name in self.PATCHED]
-        videos, window_fn, post_fn, finalize, threshold, encode, process, track = self._orig
+        (videos, window_fn, post_fn, finalize, threshold, encode, process, track, ensemble_fn,
+         crop_scores, roi_crop) = self._orig
 
         def host_timed(key, fn):
             def timed(*args, **kwargs):
@@ -1304,19 +1349,20 @@ class EngineSpans:
                     self.host[key] += time.perf_counter() - t0
             return timed
 
+        def events_around(key, fn):
+            def timed(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return timed
+
         def event_timed(key, make):
             def made(*args):
-                fn = make(*args)
-
-                def timed(*a):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    out = fn(*a)
-                    end.record()
-                    self.events[key].append((start, end))
-                    return out
-                return timed
+                return events_around(key, make(*args))
             return made
 
         def test_videos(*args):
@@ -1350,7 +1396,8 @@ class EngineSpans:
         patches = (test_videos, event_timed("windows", window_fn),
                    event_timed("tracking_topk", post_fn), host_timed("finalize", finalize),
                    host_timed("threshold", threshold), host_timed("rle", encode),
-                   record_process, record_track)
+                   record_process, record_track, event_timed("ensemble_topk", ensemble_fn),
+                   events_around("clip_crops", crop_scores), events_around("roi_crop", roi_crop))
         for (obj, name), fn in zip(self.PATCHED, patches):
             setattr(obj, name, fn)
         return self
@@ -1398,15 +1445,54 @@ def _masks_agree(a, b) -> float:
     return float((ma == mb).mean())
 
 
-def _engine_run(cfg, model, text, device):
+def _engine_run(cfg, model, text, device, clip_visual_apply=None):
     """One evaluate_dataset over the registered ENGINE_DATASET: (metrics,
     spans, wall seconds, launches)."""
     reset_counts()
     with EngineSpans() as spans:
         t0 = time.perf_counter()
-        metrics = engine.evaluate_dataset(cfg, model, ENGINE_DATASET, text, device=device)
+        metrics = engine.evaluate_dataset(cfg, model, ENGINE_DATASET, text,
+                                          clip_visual_apply=clip_visual_apply, device=device)
         wall = time.perf_counter() - t0
     return metrics, spans, wall, read_counts()
+
+
+def _engine_split(spans, wall):
+    """The run's seconds by stage (host clock; device stages by CUDA events)."""
+    data, process = spans.host["data"], spans.host["process"]
+    return {
+        "data_mapper_host": data,
+        "model_windows_device": spans.device_seconds("windows"),
+        "tracking_topk_device": spans.device_seconds("tracking_topk"),
+        "process_host": process,
+        "resize_threshold_copy_host": spans.host["threshold"],
+        "rle_host": spans.host["rle"],
+        "wait_for_topk_host": process - spans.host["threshold"] - spans.host["rle"],
+        "finalize_evaluate_host": spans.host["finalize"],
+        "other_host": wall - data - process - spans.host["finalize"],
+    }
+
+
+def _engine_expected(cfg, launches):
+    """K1 once an encoder layer a window, K4 once a video of more than one
+    frame, no other kernel."""
+    max_frames = cfg.model.test.max_frames
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    return {**{k: 0 for k in launches},
+            "msda_fwd": enc * sum(-(-t // max_frames) for _, _, t, _ in ENGINE_VIDEOS),
+            "hungarian": sum(t > 1 for _, _, t, _ in ENGINE_VIDEOS)}
+
+
+def _write_engine_dataset(root):
+    """Phase 10's synthetic dataset (the YTVIS-2019 categories), registered
+    as ENGINE_DATASET; returns its categories and the seconds it took."""
+    ytvis19 = catalog.get("ytvis_2019_val")
+    cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
+    t0 = time.perf_counter()
+    catalog.register(dataclasses.replace(
+        synthetic.write_ytvis_dataset(root, "synth", ENGINE_VIDEOS, cats, seed=SEED),
+        name=ENGINE_DATASET))
+    return cats, time.perf_counter() - t0
 
 
 def phase_engine(card: str):
@@ -1420,13 +1506,7 @@ def phase_engine(card: str):
     torch.backends.cudnn.allow_tf32 = False
     root = tempfile.mkdtemp(prefix="chip_smoke_engine_")
     try:
-        ytvis19 = catalog.get("ytvis_2019_val")
-        cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
-        t0 = time.perf_counter()
-        catalog.register(dataclasses.replace(
-            synthetic.write_ytvis_dataset(root, "synth", ENGINE_VIDEOS, cats, seed=SEED),
-            name=ENGINE_DATASET))
-        write_s = time.perf_counter() - t0
+        cats, write_s = _write_engine_dataset(root)
         cfg = _engine_config(root)
         windowed = _engine_config(root, window_inference=True, window_size=ENGINE_WINDOW)
         model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
@@ -1444,23 +1524,10 @@ def phase_engine(card: str):
 
         max_frames = cfg.model.test.max_frames
         enc = cfg.model.pixel_decoder.transformer_enc_layers
-        zero = {k: 0 for k in launches}
-        expected = {**zero, "msda_fwd": enc * sum(-(-t // max_frames) for _, _, t, _ in ENGINE_VIDEOS),
-                    "hungarian": sum(t > 1 for _, _, t, _ in ENGINE_VIDEOS)}
+        expected = _engine_expected(cfg, launches)
         expected_w = {**expected,
                       "msda_fwd": enc * sum(-(-t // ENGINE_WINDOW) for _, _, t, _ in ENGINE_VIDEOS)}
-        data, process = spans.host["data"], spans.host["process"]
-        split = {
-            "data_mapper_host": data,
-            "model_windows_device": spans.device_seconds("windows"),
-            "tracking_topk_device": spans.device_seconds("tracking_topk"),
-            "process_host": process,
-            "resize_threshold_copy_host": spans.host["threshold"],
-            "rle_host": spans.host["rle"],
-            "wait_for_topk_host": process - spans.host["threshold"] - spans.host["rle"],
-            "finalize_evaluate_host": spans.host["finalize"],
-            "other_host": wall - data - process - spans.host["finalize"],
-        }
+        split = _engine_split(spans, wall)
         finite = all(np.isfinite(v) for v in metrics.values())
         emit({"phase": "engine_full_width", "dataset": "synthetic YTVIS-2019 format, 40 classes",
               "videos_hwtn": ENGINE_VIDEOS, "dtype": "bf16 AMP", "window": max_frames,
@@ -1534,9 +1601,11 @@ def phase_engine(card: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_engine_vs_plain(root, cats):
+def phase_engine_vs_plain(root, cats, clip_weights=None):
     """One short f32 video through the engine on the card (kernels) and on
-    the CPU (plain), from one model."""
+    the CPU (plain), from one model; with ``clip_weights`` (a test-tiny CLIP
+    checkpoint) through the recipe's CLIP ensemble, the model's text width
+    cut to the tower's."""
     name = ENGINE_DATASET + "_check"
     catalog.register(dataclasses.replace(
         synthetic.write_ytvis_dataset(root, "check", [ENGINE_CHECK_VIDEO], cats, seed=SEED + 3),
@@ -1546,14 +1615,24 @@ def phase_engine_vs_plain(root, cats):
     base = dataclasses.replace(
         base, input=dataclasses.replace(base.input, min_size_test=h, pad_size=(h, w)),
         datasets=dataclasses.replace(base.datasets, test=(name,)))
+    dim = TEXT_DIM
+    if clip_weights is not None:
+        dim = model_shape(ENSEMBLE_CHECK_CLIP)["embed_dim"]
+        ca = dataclasses.replace(load_config(CLI_CONFIG).model.clip_adapter,
+                                 clip_model_name=ENSEMBLE_CHECK_CLIP, weights=clip_weights)
+        base = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, clip_adapter=ca, transformer_decoder=dataclasses.replace(
+                base.model.transformer_decoder, clip_embed_dim=dim)))
     model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
-    text = _text(np.random.RandomState(SEED + 3))
+    text = _text(np.random.RandomState(SEED + 3), dim)
     runs = {}
     for device in ("cpu", DEVICE):
         cfg = dataclasses.replace(base, output_dir=os.path.join(root, f"check_{device}"))
+        visual = None if clip_weights is None else clip_towers.build_clip_visual(cfg, device)
         reset_counts()
         t0 = time.perf_counter()
-        metrics = engine.evaluate_dataset(cfg, model, name, text, device=device)
+        metrics = engine.evaluate_dataset(cfg, model, name, text, clip_visual_apply=visual,
+                                          device=device)
         seconds = time.perf_counter() - t0
         with open(os.path.join(cfg.output_dir, f"results_{name}.json")) as f:
             runs[device] = (metrics, json.load(f), seconds, read_counts())
@@ -1563,7 +1642,9 @@ def phase_engine_vs_plain(root, cats):
     agree = min((_masks_agree(a["segmentations"], b["segmentations"])
                  for a, b in zip(p_got, p_ref)), default=1.0)
     metric_err = max(abs(m_got[k] - m_ref[k]) for k in m_ref)
-    emit({"phase": "engine_kernels_vs_plain", "dtype": "float32", "tf32": False,
+    emit({"phase": "engine_kernels_vs_plain" if clip_weights is None else
+          "ensemble_kernels_vs_plain", "dtype": "float32", "tf32": False,
+          "clip": None if clip_weights is None else ENSEMBLE_CHECK_CLIP,
           "video_hwtn": ENGINE_CHECK_VIDEO, "window": ENGINE_CHECK_WINDOW,
           "predictions": [len(p_got), len(p_ref)], "categories_equal": same,
           "max_abs_score_err": score_err, "min_mask_agreement": agree,
@@ -1578,18 +1659,151 @@ def phase_engine_vs_plain(root, cats):
         raise AssertionError(f"the card's engine run skipped a kernel: {launches}")
 
 
-class _TextBank:
-    """Seeded unit rows in place of the CLIP text bank (not ported yet)."""
+def write_clip_files(root):
+    """Random ViT-B/16 weights in OpenAI's key layout (f16, as released; from
+    the seed) and a tiny BPE merge file, under ``root``: (weights, bpe)."""
+    weights = os.path.join(root, "ViT-B-16.pt")
+    torch.save(clip_synthetic.openai_state_dict("ViT-B/16", seed=SEED), weights)
+    return weights, clip_synthetic.write_bpe(os.path.join(root, "bpe_tiny.txt.gz"))
 
-    def encode(self, names):
-        rng = np.random.RandomState(SEED + len(names))
-        text = rng.randn(len(names), TEXT_DIM).astype(np.float32)
-        return text / np.linalg.norm(text, axis=-1, keepdims=True)
+
+def _ensemble_config(root, clip):
+    """Phase 10's engine config with the recipe's clip_adapter and the CLIP
+    files ``clip`` (weights, bpe)."""
+    cfg = _engine_config(root)
+    ca = dataclasses.replace(load_config(CLI_CONFIG).model.clip_adapter, weights=clip[0],
+                             bpe_vocab=clip[1])
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, clip_adapter=ca))
+
+
+def vit_flops(shape) -> float:
+    """Operations (2 a multiply-add) of one crop through a ViT tower: the
+    patch embedding, per block the q/k/v/out and MLP products (12 L w^2) and
+    the attention's two products (2 L^2 w), and the projection."""
+    p, w, layers = shape["vision_patch"], shape["vision_width"], shape["vision_layers"]
+    n = (shape["image_size"] // p) ** 2
+    tokens = n + 1
+    macs = n * 3 * p * p * w + layers * (12 * tokens * w * w + 2 * tokens * tokens * w) \
+        + w * shape["embed_dim"]
+    return 2.0 * macs
+
+
+def _clip_tower_vs_cpu(cfg, visual, card: str):
+    """The full-width tower in f32 (TF32 off) on CLIP_TOWER_CROPS crops, card
+    against CPU; then the bf16 tower's time on one frame's Q crops."""
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, test=dataclasses.replace(cfg.model.test, amp=False)))
+    res = model_shape(cfg.model.clip_adapter.clip_model_name)["image_size"]
+    rng = np.random.RandomState(SEED + 4)
+    x = torch.from_numpy(rng.randn(CLIP_TOWER_CROPS, res, res, 3).astype(np.float32))
+    t0 = time.perf_counter()
+    ref = clip_towers.build_clip_visual(f32, "cpu")(x)
+    cpu_s = time.perf_counter() - t0
+    got = clip_towers.build_clip_visual(f32, DEVICE)(x.to(DEVICE)).cpu()
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    q = cfg.model.transformer_decoder.num_queries
+    crops = torch.from_numpy(rng.randn(q, res, res, 3).astype(np.float32))
+    crops = crops.to(DEVICE, torch.bfloat16)
+    ms = time_cuda(lambda: visual(crops), iters=5, warmup=2)
+    flop_per_s = vit_flops(model_shape(cfg.model.clip_adapter.clip_model_name)) * q / ms * 1e3
+    emit({"phase": "clip_tower_vs_cpu", "model": cfg.model.clip_adapter.clip_model_name,
+          "crops": CLIP_TOWER_CROPS, "dtype": "float32", "tf32": False,
+          "max_abs_err_rel_to_max": err, "tol_rel_to_max": CLIP_TOWER_REL_TO_MAX,
+          "cpu_s": cpu_s, "bf16_ms_per_frame_of_crops": ms, "crops_per_frame": q,
+          "bf16_tflop_per_s": flop_per_s / 1e12, "bf16_peak_share": flop_per_s / BF16_FLOPS,
+          "card": card})
+    if not err <= CLIP_TOWER_REL_TO_MAX:
+        raise AssertionError(f"the CLIP tower on the card disagrees with the CPU: {err}")
+
+
+def phase_ensemble(card: str, clip):
+    """Phase 12: SimpleBaselineOnline's CLIP ensemble through the engine over
+    phase 10's dataset at full width, bf16 AMP, with the recipe's
+    clip_adapter and the CLIP files ``clip``: the text bank of the 40
+    categories, a warm-up over the first video, then the timed run with its
+    split (phase 10's stages, the CLIP crop scoring and its roi_crops on the
+    device, the text bank's host time), its peak and launches; the
+    full-width tower in f32 against the CPU; the whole ensemble engine at
+    the test-tiny CLIP shape on the card against the CPU.  Returns the
+    launch counts of the timed run."""
+    import train_net_torch as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_ensemble_")
+    try:
+        cats, write_s = _write_engine_dataset(root)
+        cfg = _ensemble_config(root, clip)
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        masters = {n: p.detach().clone() for n, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        text = cli.build_text_bank(cfg, DEVICE).encode(
+            list(catalog.get(ENGINE_DATASET).thing_classes))
+        bank_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        visual = clip_towers.build_clip_visual(cfg, DEVICE)
+        tower_s = time.perf_counter() - t0
+        # cuDNN's and cuBLAS's choices for the tower's shapes, the allocator
+        engine.evaluate_dataset(dataclasses.replace(cfg, output_dir=os.path.join(root, "warm")),
+                                model, ENGINE_DATASET, text, max_videos=1,
+                                clip_visual_apply=visual, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        masters_kept = all(torch.equal(p, masters[n]) for n, p in model.named_parameters())
+        del masters
+        expected = _engine_expected(cfg, launches)
+        q = cfg.model.transformer_decoder.num_queries
+        shape = model_shape(cfg.model.clip_adapter.clip_model_name)
+        crops = q * spans.frames
+        clip_s = spans.device_seconds("clip_crops")
+        roi_s = spans.device_seconds("roi_crop")
+        res = shape["image_size"]
+        # roi_crop's least time: each frame (bf16) and each mask slot read
+        # once, each crop written once (bf16)
+        h, w = cfg.input.pad_size
+        roi_bytes = 2 * spans.frames * (h * w * 3 + q * (h // 4) * (w // 4) + q * res * res * 4)
+        split = {**_engine_split(spans, wall),
+                 "ensemble_tracking_clip_topk_device": spans.device_seconds("ensemble_topk"),
+                 "clip_crops_device": clip_s, "roi_crop_device": roi_s,
+                 "text_bank_host": bank_s, "clip_tower_load_host": tower_s}
+        finite = all(np.isfinite(v) for v in metrics.values())
+        emit({"phase": "ensemble_full_width", "dataset": "synthetic YTVIS-2019 format, 40 classes",
+              "videos_hwtn": ENGINE_VIDEOS, "dtype": "bf16 AMP", "window": cfg.model.test.max_frames,
+              "clip_adapter": dataclasses.asdict(cfg.model.clip_adapter),
+              "metrics": metrics, "metrics_finite": finite, "predictions": len(spans.preds),
+              "launches": launches, "expected_launches": expected,
+              "frames": spans.frames, "wall_s": wall, "frames_per_s": spans.frames / wall,
+              "split_s": split, "peak_mem_gib": peak, "callers_f32_params_unchanged": masters_kept,
+              "crops": crops, "clip_tflop": crops * vit_flops(shape) / 1e12,
+              "clip_tflop_per_s": crops * vit_flops(shape) / clip_s / 1e12,
+              "clip_bf16_peak_share": crops * vit_flops(shape) / clip_s / BF16_FLOPS,
+              "roi_crop_calls": len(spans.events["roi_crop"]),
+              "roi_crop_bound_s": roi_bytes / HBM_BYTES_PER_S,
+              "dataset_write_s": write_s, "card": card})
+        if launches != expected:
+            raise AssertionError(f"ensemble launches {launches} != {expected}")
+        if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+            raise AssertionError(f"ensemble metrics {metrics}, {len(spans.preds)} predictions")
+        if len(spans.events["ensemble_topk"]) != len(ENGINE_VIDEOS) or not spans.events["roi_crop"]:
+            raise AssertionError("the engine did not run the CLIP ensemble")
+        if not masters_kept:
+            raise AssertionError("evaluate_dataset changed the caller's f32 parameters")
+        _clip_tower_vs_cpu(cfg, visual, card)
+        del model, visual
+        torch.cuda.empty_cache()
+        tiny = os.path.join(root, "clip_tiny.pt")
+        torch.save(clip_synthetic.openai_state_dict(ENSEMBLE_CHECK_CLIP, seed=SEED + 3), tiny)
+        phase_engine_vs_plain(root, cats, clip_weights=tiny)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _cli_data(root):
     """The synthetic train and eval sets, registered; returns the config
-    overrides that point the recipe at them."""
+    overrides that point the recipe at them (its CLIP files apart)."""
     ytvis19 = catalog.get("ytvis_2019_val")
     cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
     names = ("synthetic_ytvis_2019_train", "synthetic_coco_train", "synthetic_ytvis_2019_eval")
@@ -1603,7 +1817,7 @@ def _cli_data(root):
         catalog.register(dataclasses.replace(info, name=name))
     return [f"datasets.root={root}", f"datasets.train=[{names[0]},{names[1]}]",
             f"datasets.test=[{names[2]}]", f"solver.max_iter={CLI_MAX_ITER}",
-            f"solver.checkpoint_period={CLI_PERIOD}", "model.clip_adapter.clip_ensemble=false"]
+            f"solver.checkpoint_period={CLI_PERIOD}"]
 
 
 def _metrics_lines(out):
@@ -1656,10 +1870,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_cli(card: str):
-    """The CLI at full width: train, resume, eval; then the resume, the
-    2-process and the NCCL checks.  Returns the launch counts of the train
-    run (1) and of the eval run (3), and the recorded-input kernel times."""
+def phase_cli(card: str, clip):
+    """The CLI at full width with the recipe's text bank and CLIP ensemble
+    (the CLIP files ``clip``: weights, bpe): train, resume, eval; then the
+    resume, the 2-process and the NCCL checks.  Returns the launch counts of
+    the train run (1) and of the eval run (3), and the recorded-input kernel
+    times."""
     import train_net_torch as cli
 
     # PyTorch's defaults, as a user runs the CLI (earlier phases switch TF32 off)
@@ -1667,27 +1883,27 @@ def phase_cli(card: str):
     torch.backends.cudnn.allow_tf32 = True
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     saves, restored = [], []
-    orig = cli.build_text_bank, cli.save_checkpoint, cli.restore_checkpoint
+    orig = cli.save_checkpoint, cli.restore_checkpoint
 
     def timed_save(directory, step, state):
         t0 = time.perf_counter()
-        path = orig[1](directory, step, state)
+        path = orig[0](directory, step, state)
         saves.append({"step": step, "ms": (time.perf_counter() - t0) * 1e3,
                       "bytes": os.path.getsize(path)})
         return path
 
     def recorded_restore(src, state):
-        out = orig[2](src, state)
+        out = orig[1](src, state)
         if out is not None:
             restored.append(_state_copy(state))
             restored[-1]["lr_next"] = state.opt.lr(state.opt.count)
         return out
 
-    cli.build_text_bank = lambda cfg: _TextBank()
     cli.save_checkpoint, cli.restore_checkpoint = timed_save, recorded_restore
     try:
         t0 = time.perf_counter()
-        common = _cli_data(root)
+        common = _cli_data(root) + [f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}"]
         write_s = time.perf_counter() - t0
         emit({"phase": "cli_setup", "config": CLI_CONFIG, "overrides": common + ["output_dir=..."],
               "train_videos_hwtn": CLI_TRAIN_VIDEOS, "train_images_hwn": CLI_TRAIN_IMAGES,
@@ -1786,7 +2002,9 @@ def phase_cli(card: str):
         if launches3 != expected3:
             raise AssertionError(f"CLI eval launches {launches3} != {expected3}")
 
-        batches, recorded = _api_resume_check(cfg, root)
+        text = torch.from_numpy(cli.build_text_bank(cfg, DEVICE).encode(
+            list(catalog.get(cfg.datasets.train[0]).thing_classes)))
+        batches, recorded = _api_resume_check(cfg, root, text)
         _dp_check(common, batches[0], root)
 
         # 5. one step through --distributed under NCCL, a world of 1
@@ -1803,18 +2021,16 @@ def phase_cli(card: str):
             raise AssertionError("the NCCL step did not run")
         return train_launches, launches3, recorded
     finally:
-        cli.build_text_bank, cli.save_checkpoint, cli.restore_checkpoint = orig
+        cli.save_checkpoint, cli.restore_checkpoint = orig
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _fixed_batches(cfg, n):
+def _fixed_batches(cfg, n, text):
     loader = TrainLoader(cfg, seed=SEED)
     try:
         batches = [next(loader) for _ in range(n)]
     finally:
         loader.close()
-    k = len(catalog.get(cfg.datasets.train[0]).thing_classes)
-    text = torch.from_numpy(_TextBank().encode(range(k)))
     return [dict(b, text_feats=text) for b in batches]
 
 
@@ -1901,7 +2117,7 @@ def _stream_off_by_one(state):
     state.step += 1
 
 
-def _api_resume_check(cfg, root):
+def _api_resume_check(cfg, root, text):
     """2 + 2 steps through a checkpoint against 4 uninterrupted, on fixed
     loader batches, in the recipe's bf16 AMP.  The resumed state must equal
     the checkpoint bit for bit.  Step 3 then starts from the same state in
@@ -1914,7 +2130,7 @@ def _api_resume_check(cfg, root):
     the step's stream one step off (the losses).  The first step's K1-K6
     inputs are recorded and held against the plain versions.  Returns the
     batches (on the host) and ``_hold_cli_recorded``'s times."""
-    batches = _fixed_batches(cfg, 4)
+    batches = _fixed_batches(cfg, 4, text)
     k = batches[0]["text_feats"].shape[0]
     d = os.path.join(root, "api_ckpt")
     whole = _fresh_step(cfg, SEED, k)
@@ -2103,7 +2319,13 @@ def main() -> int:
         fields[name].update(extra)
     phase_train_vs_plain()
     engine_launches = phase_engine(card)
-    cli_launches, cli_eval_launches, cli_recorded = phase_cli(card)
+    clip_dir = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    try:
+        clip = write_clip_files(clip_dir)
+        cli_launches, cli_eval_launches, cli_recorded = phase_cli(card, clip)
+        ensemble_launches = phase_ensemble(card, clip)
+    finally:
+        shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in cli_recorded.items():
         fields[name].update(extra)
     leaked = [m for m in ("jax", "openvis_tpu") if m in sys.modules]
@@ -2122,7 +2344,8 @@ def main() -> int:
          "replaces": replaces, "launches": train_launches[name],
          "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name],
                               "engine": engine_launches[name], "cli_train": cli_launches[name],
-                              "cli_eval": cli_eval_launches[name]},
+                              "cli_eval": cli_eval_launches[name],
+                              "ensemble": ensemble_launches[name]},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

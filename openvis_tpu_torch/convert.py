@@ -7,9 +7,15 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
   * Dense ``kernel`` (in, out)      -> ``weight`` (out, in)
   * Conv ``kernel`` HWIO            -> ``weight`` OIHW
   * LayerNorm/GroupNorm ``scale``   -> ``weight``
+  * Embed ``embedding``             -> ``weight`` (CLIP's token embedding)
   * everything else as it is: ``bias``, the ``FrozenAffine`` ``scale``/``bias``
     of the ResNet, ``level_embed``, ``query_feat``, ``query_embed``,
-    ``non_object_embedding``.
+    ``non_object_embedding``, and CLIP's ``proj``, ``text_projection``,
+    ``class_embedding``, ``positional_embedding`` and ``logit_scale``.
+
+The CLIP towers keep flax's module levels, the ``ln`` inside each
+``LayerNormF32`` included, so their keys need no other rule; the bias-free
+patch conv is a Conv kernel like any other.
 
 ``load_flax_params`` loads such a tree strictly: a missing, unknown or
 misshapen key raises.  ``init_params`` draws the port's own seeded init.
@@ -69,6 +75,8 @@ def params_from_flax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
             leaf = "weight"
         elif leaf == "scale" and not _is_frozen_affine(path):
+            leaf = "weight"
+        elif leaf == "embedding":
             leaf = "weight"
         state[".".join([*mods, leaf])] = _to_torch(arr)
     return state

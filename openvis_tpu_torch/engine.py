@@ -22,14 +22,21 @@ frames:
   on bf16 copies of its parameters, so the caller's f32 parameters are never
   touched.
 
+With a CLIP visual tower (``clip_towers.build_clip_visual``) and
+``clip_adapter.clip_ensemble``, SimpleBaselineOnline's open-vocabulary
+ensemble (JAX ``engine.py:341-356``, ``:457-504``) scores the video: tracking
+once, the masks aligned by track, mask-crop CLIP scores over the real
+frames, the model's own tracked scores, their geometric mean, the top-k of
+the aligned masks.
+
 Under a process group (``parallel/dist.py``) process p reads and evaluates
 videos p, p + P, ... (``max_videos`` counted globally); rank 0 gathers the
 predictions (``torch.distributed``, no shared file system) and scores them;
 the other processes return ``{}``.
 
 Everything the JAX engine dispatches elsewhere (BriVIS, the offline archs,
-OpenVIS, OV2Seg, the CLIP ensemble, BURST) raises ``NotImplementedError``
-naming its ROADMAP.md item.
+OpenVIS, OV2Seg, BURST) raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -153,18 +160,40 @@ def make_postprocess_fn(cfg: Config) -> Callable:
     return fn
 
 
-def _check_ported(cfg: Config, clip_visual_apply) -> None:
+def make_ensemble_fn(cfg: Config, clip_visual_apply, params: Dict[str, torch.Tensor],
+                     text: torch.Tensor) -> Callable:
+    """f(logits (T, Q, C), masks (Q, T, h, w), embeds (T, Q, C), pixels (T, H,
+    W, 3) on the host) -> top-k dict of SimpleBaselineOnline's CLIP ensemble
+    (simplebsl.py:122-163): tracking once, the masks aligned by track, the
+    mask-crop CLIP scores over the frames, the tracked frame-mean scores
+    without the no-object column, their geometric mean, and the top-k of the
+    aligned masks."""
+    from openvis_tpu_torch import clip_towers  # it imports this module's eval_dtype
+
+    topk = cfg.model.test.topk_per_video
+    window = window_size(cfg)
+    weight = cfg.model.clip_adapter.clip_ensemble_weight
+    score_fn = clip_towers.make_openvis_score_fn(cfg, clip_visual_apply)
+    text_crop, crop_has_bg = clip_towers.crop_text_with_bg(cfg, params, text)
+
+    def fn(logits, masks, embeds, pixels):
+        t = logits.shape[0]
+        indices = track_by_embeds(embeds[None])                        # (1, T, Q)
+        aligned = apply_track_indices(masks.transpose(0, 1)[None], indices)[0]  # (T, Q, h, w)
+        clip_lg, clip_vd = clip_towers.clip_crop_scores(cfg, score_fn, pixels, aligned,
+                                                        text_crop, window, t)
+        scores = eval_scores(apply_track_indices(logits[None], indices))[0]
+        scores = clip_towers.apply_clip_ensemble(scores, clip_lg, clip_vd, weight,
+                                                 drop_last=crop_has_bg)
+        return inference_video_topk(scores, aligned.transpose(0, 1), topk)
+
+    return fn
+
+
+def _check_ported(cfg: Config) -> None:
     arch = cfg.model.meta_architecture
     if arch != "SimpleBaselineOnline":
         raise _not_ported(f"the evaluation of {arch!r}", _ITEM_OF_ARCH.get(arch, 8))
-    if clip_visual_apply is not None:
-        raise _not_ported("the CLIP visual tower and the mask-crop ensemble", 4)
-
-
-def build_clip_visual(cfg: Config):
-    """The frozen CLIP visual tower of the mask-crop ensemble (the JAX
-    engine's ``build_clip_visual``)."""
-    raise _not_ported("the CLIP visual tower and the mask-crop ensemble", 4)
 
 
 def evaluate_dataset(
@@ -180,9 +209,12 @@ def evaluate_dataset(
     dataset with text embeddings ``text_feats`` (K, D) and return the
     evaluator's metrics.  Runs on ``device`` (the card unless the caller
     passes ``"cpu"``); the model's parameters are read, never modified.
-    Under a process group every process calls it; rank 0 returns the metrics
-    of all the processes' videos, the others ``{}``."""
-    _check_ported(cfg, clip_visual_apply)
+    ``clip_visual_apply`` (``clip_towers.build_clip_visual``, on the same
+    device) turns on the CLIP ensemble where ``clip_adapter.clip_ensemble``
+    asks for it, as in the JAX engine.  Under a process group every process
+    calls it; rank 0 returns the metrics of all the processes' videos, the
+    others ``{}``."""
+    _check_ported(cfg)
     device = resolve_device(device)
     evaluator = make_evaluator(catalog.get(dataset_name))
     dtype = eval_dtype(cfg)
@@ -191,6 +223,9 @@ def evaluate_dataset(
     text = torch.as_tensor(text_feats).to(device, dtype)
     window_fn = make_window_fn(cfg, model)
     post_fn = make_postprocess_fn(cfg)
+    ensemble_fn = None
+    if clip_visual_apply is not None and cfg.model.clip_adapter.clip_ensemble:
+        ensemble_fn = make_ensemble_fn(cfg, clip_visual_apply, params, text)
 
     counts = []  # predictions of each video, in this process's order
     with torch.inference_mode():
@@ -207,7 +242,10 @@ def evaluate_dataset(
             masks = torch.cat([p["masks"] for p in parts], dim=1)       # (Q, T, h, w)
             embeds = torch.cat([p["embeds"] for p in parts])            # (T, Q, C)
             del parts
-            topk = post_fn(logits, masks, embeds)
+            if ensemble_fn is None:
+                topk = post_fn(logits, masks, embeds)
+            else:
+                topk = ensemble_fn(logits, masks, embeds, pixels)
             del logits, masks, embeds
             n = len(evaluator.predictions)
             evaluator.process(rec["video_id"], topk, sample["image_size"],

@@ -1,0 +1,293 @@
+"""CLIP text and vision towers.
+
+Port of ``openvis_tpu/models/clip/model.py`` (OpenAI's CLIP architecture):
+
+  * QuickGELU, LayerNorm in f32 (eps 1e-5) cast back to the input's dtype;
+  * attention as explicit products with an f32 softmax, as the JAX package
+    writes it (no fused library call), so that under AMP the dtype islands
+    are the same and in f32 the CPU parity is exact up to summation order;
+  * the text tower: token and positional embeddings, a causal transformer,
+    ``ln_final``, the feature at the EOT (argmax token) position, projected
+    by ``text_projection``;
+  * the ViT vision tower: patch conv, class token, positional embedding
+    resized bicubically to the input's patch grid, ``ln_pre``, blocks,
+    ``ln_post`` and ``proj``, with the block API ``embed`` /
+    ``run_blocks(lo, hi, taps)`` / ``finalize``.
+
+Module and parameter names mirror the flax ones (``resblock{i}``, the
+LayerNorm's inner ``ln``), so ``convert.params_from_flax`` maps a JAX or a
+converted OpenAI tree onto the ``state_dict``.  Images are NHWC, as in the
+JAX package.
+
+SAN's per-head attention bias and sos queries (``attn_bias``, ``sos_q``) are
+ROADMAP.md queue 1 item 5 and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from openvis_tpu_torch.utils.image import resize_bicubic_torch_hw
+
+NEG_INF = -1e9
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _san_not_ported() -> NotImplementedError:
+    return NotImplementedError("SAN's biased attention (attn_bias, sos_q) is not ported yet "
+                               "(ROADMAP.md, queue 1 item 5)")
+
+
+class LayerNormF32(nn.Module):
+    """LayerNorm computed in float32 then cast back (CLIP ``LayerNorm``)."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.ln = nn.LayerNorm(width, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ln = self.ln
+        y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
+                         ln.eps)
+        return y.to(x.dtype)
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.q_proj = nn.Linear(width, width)
+        self.k_proj = nn.Linear(width, width)
+        self.v_proj = nn.Linear(width, width)
+        self.out_proj = nn.Linear(width, width)
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, L, C); ``attn_mask`` (L, L) additive."""
+        b, l, c = x.shape
+        h = self.heads
+        dh = c // h
+        q = self.q_proj(x).reshape(b, l, h, dh).transpose(1, 2)     # (B, H, L, dh)
+        k = self.k_proj(x).reshape(b, l, h, dh).transpose(1, 2)
+        v = self.v_proj(x).reshape(b, l, h, dh).transpose(1, 2)
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
+        if attn_mask is not None:
+            logits = logits + attn_mask
+        attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        return self.out_proj((attn @ v).transpose(1, 2).reshape(b, l, c))
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.ln_1 = LayerNormF32(width)
+        self.attn = CLIPAttention(width, heads)
+        self.ln_2 = LayerNormF32(width)
+        self.mlp_c_fc = nn.Linear(width, width * 4)
+        self.mlp_c_proj = nn.Linear(width * 4, width)
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                attn_bias=None, sos_q: int = 0) -> torch.Tensor:
+        if attn_bias is not None or sos_q:
+            raise _san_not_ported()
+        x = x + self.attn(self.ln_1(x), attn_mask)
+        return x + self.mlp_c_proj(quick_gelu(self.mlp_c_fc(self.ln_2(x))))
+
+
+def _blocks(owner: nn.Module, width: int, heads: int, layers: int):
+    """``resblock{i}`` submodules (the flax names), returned in order."""
+    for i in range(layers):
+        owner.add_module(f"resblock{i}", ResidualAttentionBlock(width, heads))
+    return [getattr(owner, f"resblock{i}") for i in range(layers)]
+
+
+class CLIPTextEncoder(nn.Module):
+    """Causal text transformer -> EOT feature @ text_projection."""
+
+    def __init__(self, vocab_size: int = 49408, context_length: int = 77, width: int = 512,
+                 heads: int = 8, layers: int = 12, embed_dim: int = 512):
+        super().__init__()
+        self.context_length = context_length
+        self.token_embedding = nn.Embedding(vocab_size, width)
+        self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
+        self.blocks = _blocks(self, width, heads, layers)
+        self.ln_final = LayerNormF32(width)
+        self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:  # (B, context_length) int
+        x = self.token_embedding(tokens) + self.positional_embedding[None]
+        l = tokens.shape[1]
+        causal = torch.full((l, l), NEG_INF, dtype=x.dtype, device=x.device).triu(1)
+        for block in self.blocks:
+            x = block(x, attn_mask=causal)
+        x = self.ln_final(x)
+        eot = tokens.argmax(dim=-1)  # EOT has the highest token id
+        return x[torch.arange(x.shape[0], device=x.device), eot] @ self.text_projection
+
+
+def resize_pos_embed(pos: torch.Tensor, grid_hw: Tuple[int, int],
+                     src_grid: Optional[int] = None) -> torch.Tensor:
+    """Resize a (1+G*G, C) ViT positional embedding to an (H', W') patch grid,
+    bicubic without antialias (``side_adapter.py:41-67``); (1+H'*W', C)."""
+    n, c = pos.shape
+    g = src_grid or int(round((n - 1) ** 0.5))
+    if (g, g) == tuple(grid_hw):
+        return pos
+    grid = pos[1:].reshape(g, g, c).permute(2, 0, 1)
+    grid = resize_bicubic_torch_hw(grid, tuple(grid_hw))
+    return torch.cat([pos[:1], grid.permute(1, 2, 0).reshape(-1, c)], dim=0)
+
+
+class CLIPVisionTransformer(nn.Module):
+    """ViT vision tower with block-level access."""
+
+    def __init__(self, patch_size: int = 16, width: int = 768, layers: int = 12,
+                 heads: int = 12, embed_dim: int = 512, image_size: int = 224):
+        super().__init__()
+        g = image_size // patch_size
+        self.patch_size = patch_size
+        self.layers = layers
+        self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(width))
+        self.positional_embedding = nn.Parameter(torch.empty(1 + g * g, width))
+        self.ln_pre = LayerNormF32(width)
+        self.blocks = _blocks(self, width, heads, layers)
+        self.ln_post = LayerNormF32(width)
+        self.proj = nn.Parameter(torch.empty(width, embed_dim))
+
+    def embed(self, images: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """images (B, H, W, 3) normalized, H and W multiples of the patch ->
+        ((B, 1+hw, C), (h, w))."""
+        if images.shape[1] % self.patch_size or images.shape[2] % self.patch_size:
+            raise ValueError(f"image size {tuple(images.shape[1:3])} is not a multiple of the "
+                             f"patch size {self.patch_size}")
+        x = self.conv1(images.permute(0, 3, 1, 2))                   # (B, C, h, w)
+        b, c, h, w = x.shape
+        x = x.flatten(2).transpose(1, 2)                              # (B, hw, C)
+        cls = self.class_embedding.to(x.dtype).expand(b, 1, c)
+        x = torch.cat([cls, x], dim=1)
+        x = x + resize_pos_embed(self.positional_embedding, (h, w))[None].to(x.dtype)
+        return self.ln_pre(x), (h, w)
+
+    def run_blocks(self, x: torch.Tensor, lo: int, hi: int, attn_bias=None,
+                   taps: Sequence[int] = (), sos_q: int = 0
+                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+        """Run blocks [lo, hi); ``taps``: 1-based block indices whose output
+        to record (SAN's ``merge_ids``)."""
+        if attn_bias is not None or sos_q:
+            raise _san_not_ported()
+        tapped: Dict[int, torch.Tensor] = {}
+        for i in range(lo, hi):
+            x = self.blocks[i](x)
+            if (i + 1) in taps:
+                tapped[i + 1] = x
+        return x, tapped
+
+    def finalize(self, x: torch.Tensor, project: bool = True) -> torch.Tensor:
+        """``ln_post`` on the class token (or all tokens) and the projection."""
+        y = self.ln_post(x)
+        return y @ self.proj if project else y
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x, _ = self.embed(images)
+        x, _ = self.run_blocks(x, 0, self.layers)
+        return self.finalize(x[:, 0])
+
+
+class CLIP(nn.Module):
+    """Both towers and the logit scale."""
+
+    def __init__(self, embed_dim: int = 512, vision_patch: int = 16, vision_width: int = 768,
+                 vision_layers: int = 12, vision_heads: int = 12, image_size: int = 224,
+                 text_width: int = 512, text_heads: int = 8, text_layers: int = 12,
+                 vocab_size: int = 49408, context_length: int = 77):
+        super().__init__()
+        self.visual = CLIPVisionTransformer(vision_patch, vision_width, vision_layers,
+                                            vision_heads, embed_dim, image_size)
+        self.text = CLIPTextEncoder(vocab_size, context_length, text_width, text_heads,
+                                    text_layers, embed_dim)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return self.visual(images)
+
+    def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.text(tokens)
+
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        img = self.encode_image(images)
+        txt = self.encode_text(tokens)
+        img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+        txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+        return self.logit_scale.exp() * img @ txt.T
+
+
+# OpenAI CLIP preprocessing constants (RGB in [0,1])
+CLIP_PIXEL_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
+
+_MODEL_SHAPES = {
+    "ViT-B/16": dict(embed_dim=512, vision_patch=16, vision_width=768,
+                     vision_layers=12, vision_heads=12, image_size=224,
+                     text_width=512, text_heads=8, text_layers=12),
+    "ViT-B/32": dict(embed_dim=512, vision_patch=32, vision_width=768,
+                     vision_layers=12, vision_heads=12, image_size=224,
+                     text_width=512, text_heads=8, text_layers=12),
+    "ViT-L/14": dict(embed_dim=768, vision_patch=14, vision_width=1024,
+                     vision_layers=24, vision_heads=16, image_size=224,
+                     text_width=768, text_heads=12, text_layers=12),
+    "ViT-L/14@336px": dict(embed_dim=768, vision_patch=14, vision_width=1024,
+                           vision_layers=24, vision_heads=16, image_size=336,
+                           text_width=768, text_heads=12, text_layers=12),
+    # ModifiedResNet towers (vision_layers is a TUPLE): not ported yet
+    # (ROADMAP.md queue 1 item 8)
+    "RN50": dict(embed_dim=1024, vision_patch=None, vision_width=64,
+                 vision_layers=(3, 4, 6, 3), vision_heads=32, image_size=224,
+                 text_width=512, text_heads=8, text_layers=12),
+    "RN101": dict(embed_dim=512, vision_patch=None, vision_width=64,
+                  vision_layers=(3, 4, 23, 3), vision_heads=32,
+                  image_size=224, text_width=512, text_heads=8,
+                  text_layers=12),
+    # tiny shape for tests/smoke runs (not a real OpenAI checkpoint)
+    "test-tiny": dict(embed_dim=32, vision_patch=8, vision_width=64,
+                      vision_layers=4, vision_heads=4, image_size=64,
+                      text_width=64, text_heads=4, text_layers=2,
+                      vocab_size=512, context_length=16),
+    "test-tiny-rn": dict(embed_dim=32, vision_patch=None, vision_width=8,
+                         vision_layers=(1, 1, 1, 1), vision_heads=4,
+                         image_size=64, text_width=64, text_heads=4,
+                         text_layers=2, vocab_size=512, context_length=16),
+}
+
+
+def model_shape(model_name: str) -> Dict:
+    """The shape of a ViT CLIP; the ModifiedResNet towers raise."""
+    if model_name not in _MODEL_SHAPES:
+        raise ValueError(f"unknown CLIP model {model_name!r}")
+    shape = _MODEL_SHAPES[model_name]
+    if isinstance(shape["vision_layers"], tuple):
+        raise NotImplementedError(f"the ModifiedResNet CLIP tower {model_name!r} is not ported "
+                                  "yet (ROADMAP.md, queue 1 item 8)")
+    return shape
+
+
+def vision_tower(model_name: str) -> CLIPVisionTransformer:
+    s = model_shape(model_name)
+    return CLIPVisionTransformer(s["vision_patch"], s["vision_width"], s["vision_layers"],
+                                 s["vision_heads"], s["embed_dim"], s["image_size"])
+
+
+def text_tower(model_name: str, vocab_size: int, context_length: int) -> CLIPTextEncoder:
+    """The text tower of ``model_name`` with the vocabulary and context
+    length of its weights (as OpenAI's ``build_model`` reads them from the
+    state dict)."""
+    s = model_shape(model_name)
+    return CLIPTextEncoder(vocab_size, context_length, s["text_width"], s["text_heads"],
+                           s["text_layers"], s["embed_dim"])

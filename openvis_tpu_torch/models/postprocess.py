@@ -7,7 +7,7 @@ each prediction's entropy.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -16,11 +16,12 @@ def inference_video_topk(
     scores: torch.Tensor,                 # (Q, K) softmaxed, no no-object column
     mask_logits: torch.Tensor,            # (Q, T, H, W) raw per-frame query order
     topk: int,
-    track_indices: torch.Tensor,          # (T, Q): track k -> raw query at frame t
+    track_indices: Optional[torch.Tensor] = None,  # (T, Q): track k -> raw query at frame t
 ) -> Dict[str, torch.Tensor]:
-    """The scores are in track order; only the selected masks are gathered
-    from the raw per-frame order.  Ties in ``torch.topk`` may resolve
-    otherwise than ``jax.lax.top_k``."""
+    """The scores are in track order.  With ``track_indices`` only the
+    selected masks are gathered from the raw per-frame order; without them
+    the masks are already in track order (the CLIP ensemble aligns them all).
+    Ties in ``torch.topk`` may resolve otherwise than ``jax.lax.top_k``."""
     q, k = scores.shape
     topk = min(topk, q * k)
     top_scores, top_idx = torch.topk(scores.reshape(-1), topk)
@@ -28,9 +29,12 @@ def inference_video_topk(
     query_idx = torch.div(top_idx, k, rounding_mode="floor")
     sel_scores = scores[query_idx]                            # (topk, K)
     entropy = -(sel_scores * torch.log(sel_scores + 1e-12)).sum(dim=-1)
-    sel_idx = track_indices[:, query_idx]                     # (T, topk)
-    frames = torch.arange(track_indices.shape[0], device=mask_logits.device)
-    masks = mask_logits[sel_idx.T, frames[None, :]]           # (topk, T, H, W)
+    if track_indices is None:
+        masks = mask_logits[query_idx]                        # (topk, T, H, W)
+    else:
+        sel_idx = track_indices[:, query_idx]                 # (T, topk)
+        frames = torch.arange(track_indices.shape[0], device=mask_logits.device)
+        masks = mask_logits[sel_idx.T, frames[None, :]]       # (topk, T, H, W)
     return {
         "scores": top_scores,
         "labels": labels,

@@ -1,4 +1,4 @@
-"""Readers of reference-format weights: Detectron2 Mask2Former checkpoints.
+"""Readers of reference-format weights: Detectron2 Mask2Former and OpenAI CLIP.
 
 A copy of ``tools/convert_weights.py``'s readers for the port (the tool
 belongs to the JAX package, which the port does not import):
@@ -12,9 +12,11 @@ belongs to the JAX package, which the port does not import):
     flax-layout tree as the tool, which ``convert.params_from_flax`` maps onto
     the port's ``state_dict`` keys (``segmenter_state``).
 
-The Swin, timm-ResNet and CLIP readers are not ported yet and raise, naming
-their ROADMAP.md item.  The JAX package's flax ``.msgpack`` files are not
-read: convert the reference checkpoint itself.
+``convert_clip`` (``:366``, ``_clip_block`` ``:319``) converts an OpenAI CLIP
+ViT state dict the same way.  The Swin, timm-ResNet and ModifiedResNet CLIP
+readers are not ported yet and raise, naming their ROADMAP.md item.  The JAX
+package's flax ``.msgpack`` files are not read: convert the reference
+checkpoint itself.
 """
 
 from __future__ import annotations
@@ -221,8 +223,50 @@ def convert_mask2former(
     }
 
 
+def _ln_f32(d, name):  # CLIP's LayerNormF32 holds its LayerNorm as ``ln``
+    return {"ln": _norm(d, name)}
+
+
+def _clip_block(d, pre):
+    """An OpenAI residual block: the packed ``in_proj`` splits into q/k/v."""
+    return {
+        "ln_1": _ln_f32(d, f"{pre}.ln_1"),
+        "ln_2": _ln_f32(d, f"{pre}.ln_2"),
+        "attn": _mha(d, f"{pre}.attn"),
+        "mlp_c_fc": _lin(d, f"{pre}.mlp.c_fc"),
+        "mlp_c_proj": _lin(d, f"{pre}.mlp.c_proj"),
+    }
+
+
+def _n_blocks(d, prefix):
+    return len({k[len(prefix):].split(".")[0] for k in d if k.startswith(prefix)})
+
+
 def convert_clip(state: Dict[str, np.ndarray]) -> Dict:
-    raise _not_ported("the CLIP weight reader", 4)
+    """OpenAI CLIP state dict (ViT) -> {visual, text, logit_scale}; the
+    ModifiedResNet (RN50/RN101) towers raise."""
+    d = state
+    if "visual.layer1.0.conv1.weight" in d:
+        raise _not_ported("the ModifiedResNet CLIP tower's weight reader", 8)
+    visual = {
+        "conv1": {"kernel": np.ascontiguousarray(d["visual.conv1.weight"].transpose(2, 3, 1, 0))},
+        "class_embedding": d["visual.class_embedding"],
+        "positional_embedding": d["visual.positional_embedding"],
+        "ln_pre": _ln_f32(d, "visual.ln_pre"),
+        "ln_post": _ln_f32(d, "visual.ln_post"),
+        "proj": d["visual.proj"],
+    }
+    for i in range(_n_blocks(d, "visual.transformer.resblocks.")):
+        visual[f"resblock{i}"] = _clip_block(d, f"visual.transformer.resblocks.{i}")
+    text = {
+        "token_embedding": {"embedding": d["token_embedding.weight"]},
+        "positional_embedding": d["positional_embedding"],
+        "ln_final": _ln_f32(d, "ln_final"),
+        "text_projection": d["text_projection"],
+    }
+    for i in range(_n_blocks(d, "transformer.resblocks.")):
+        text[f"resblock{i}"] = _clip_block(d, f"transformer.resblocks.{i}")
+    return {"visual": visual, "text": text, "logit_scale": d["logit_scale"].reshape(())}
 
 
 def convert_timm_resnet(state: Dict[str, np.ndarray], depth: int = 50) -> Dict:

@@ -2,8 +2,10 @@
 cpu``) over the synthetic YTVIS data of ``tests/test_train_net_cli.py``
 (``cli_root``, registered in the port's catalog): train 2 steps with a
 checkpoint and a profiler trace, ``--resume`` to step 4, ``--eval-only
---weights <checkpoint dir>``.  The text bank is replaced, as the JAX CLI's test
-replaces it (the CLIP text tower is not ported yet)."""
+--weights <checkpoint dir>`` with the recipe's CLIP ensemble (``bg_clip``).
+The text bank and the CLIP tower are real, at the ``test-tiny`` CLIP shape:
+random weights in OpenAI's layout and a tiny BPE merge file written by the
+fixture (``models/clip/synthetic.py``)."""
 
 import json
 import os
@@ -16,7 +18,9 @@ from PIL import Image
 
 import train_net_torch
 from openvis_tpu_torch.checkpoint import latest_step, load_checkpoint
+from openvis_tpu_torch.config import load_config
 from openvis_tpu_torch.data import catalog, rle
+from openvis_tpu_torch.models.clip import synthetic as clip_synthetic
 
 D = 32
 TRAIN, EVAL = "torch_port_cli_train", "torch_port_cli_eval"
@@ -76,7 +80,14 @@ model:
     mask_dim: 64
     clip_embed_dim: {d}
   criterion: {{train_num_points: 128}}
-  clip_adapter: {{clip_ensemble: false}}
+  clip_adapter:
+    name: bg_clip
+    prompt_name: vild
+    clip_model_name: test-tiny
+    clip_ensemble: true
+    clip_ensemble_weight: 0.5
+    weights: {root}/clip_tiny.pt
+    bpe_vocab: {root}/bpe.txt.gz
   test: {{window_inference: true, window_size: 4, topk_per_video: 5}}
 solver:
   ims_per_batch: 1
@@ -116,21 +127,13 @@ def cli_root(tmp_path_factory):
         catalog.register(catalog.DatasetInfo(
             name=name, image_root="vids/JPEGImages", json_file=js,
             thing_classes=("c1", "c2"), id_map={1: 0, 2: 1}))
+    torch.save(clip_synthetic.openai_state_dict("test-tiny", seed=5,
+                                                vocab_size=clip_synthetic.bpe_vocab_size()),
+               root / "clip_tiny.pt")
+    clip_synthetic.write_bpe(str(root / "bpe.txt.gz"))
     cfg_path = root / "cli.yaml"
     cfg_path.write_text(CFG_YAML.format(d=D, root=root, train=TRAIN, eval=EVAL))
     return str(root), str(cfg_path)
-
-
-class _FakeBank:
-    def encode(self, names):
-        rng = np.random.RandomState(7)
-        t = rng.randn(len(names), D).astype(np.float32)
-        return t / np.linalg.norm(t, axis=-1, keepdims=True)
-
-
-@pytest.fixture(autouse=True)
-def fake_bank(monkeypatch):
-    monkeypatch.setattr(train_net_torch, "build_text_bank", lambda cfg: _FakeBank())
 
 
 def _lines(path):
@@ -181,12 +184,23 @@ def test_eval_only_refuses_a_missing_checkpoint(cli_root):
                               "--weights", os.path.join(cli_root[0], "nope")])
 
 
-def test_unported_towers_raise_their_roadmap_item(cli_root, monkeypatch):
+def test_unported_towers_raise_their_roadmap_item(cli_root):
     _, cfg_path = cli_root
-    monkeypatch.undo()  # the real text bank
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        train_net_torch.main(["--config-file", cfg_path, "--device", "cpu"])
-    monkeypatch.setattr(train_net_torch, "build_text_bank", lambda cfg: _FakeBank())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        train_net_torch.main(["--config-file", cfg_path, "--device", "cpu", "--eval-only",
-                              "model.clip_adapter.clip_ensemble=true"])
+    run = ["--config-file", cfg_path, "--device", "cpu", "--eval-only"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        train_net_torch.main(run + ["model.clip_adapter.name=bg_adapted"])
+    with pytest.raises(ValueError, match="queue 1 item 8"):
+        train_net_torch.main(run + ["model.clip_adapter.weights=ViT-B/16"])
+    # no CLIP weights: the CLI stops, it does not drop the bank or the ensemble
+    with pytest.raises(SystemExit, match="clip_adapter.weights"):
+        train_net_torch.main(run + ["model.clip_adapter.weights="])
+
+
+def test_text_bank_is_the_clip_text_tower(cli_root):
+    root, cfg_path = cli_root
+    cfg = load_config(cfg_path)
+    bank = train_net_torch.build_text_bank(cfg, "cpu")
+    emb = bank.encode(["c1", "c2"])
+    assert emb.shape == (2, D) and emb.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-6)
+    assert len(bank.templates) == 14 and bank.encoder.context_length == 77

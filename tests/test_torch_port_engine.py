@@ -181,8 +181,12 @@ def test_amp_eval_leaves_the_callers_parameters(runs):
 def test_engine_refuses_what_is_not_ported(setup):
     root, text, *_ , pm = setup
     cfg = _cfg(port_config, root, True, False, "refused")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        engine.evaluate_dataset(cfg, pm, DATASET, text, clip_visual_apply=lambda x: x,
+    # the CLIP ensemble is ported (tests/test_torch_port_clip_ensemble.py); with
+    # a mask-adapted tower it is not
+    adapted = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, clip_adapter=dataclasses.replace(cfg.model.clip_adapter, name="bg_adapted")))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=lambda x: x,
                                 device="cpu")
     brivis = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, meta_architecture="BriVIS"))

@@ -116,5 +116,7 @@ def test_unported_readers_raise(tmp_path):
         weights.convert_mask2former({}, backbone="swin")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         weights.convert_timm_resnet({})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        weights.convert_clip({})
+    # the ViT CLIP reader is ported (tests/test_torch_port_clip.py); the
+    # ModifiedResNet one is not
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        weights.convert_clip({"visual.layer1.0.conv1.weight": np.zeros((64, 3, 3, 3))})

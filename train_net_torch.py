@@ -18,8 +18,10 @@ on the CPU (``--device cpu``) or on N processes over ``torch.distributed``
   * only rank 0 writes checkpoints and metrics; the other processes wait at a
     barrier.
 
-The text bank needs the CLIP text tower, which is not ported yet
-(``build_text_bank`` raises; tests replace it).
+The text bank (``build_text_bank``) and, for the SimpleBaseline CLIP ensemble,
+the frozen CLIP visual tower come from ``model.clip_adapter.weights`` (a local
+OpenAI CLIP ``.pt``: a JIT archive or a state dict) and ``bpe_vocab`` (a local
+``bpe_simple_vocab_16e6.txt.gz``).
 
 Usage:
   python train_net_torch.py --config-file configs/openvoc_ytvis_coco/simplebsl_online_R50_bs8_12000st.yaml
@@ -48,10 +50,16 @@ from openvis_tpu_torch.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from openvis_tpu_torch.clip_towers import build_clip_visual
 from openvis_tpu_torch.config import load_config
-from openvis_tpu_torch.convert import init_params
+from openvis_tpu_torch.convert import init_params, params_from_flax
 from openvis_tpu_torch.data import catalog
 from openvis_tpu_torch.data.loader import TrainLoader
+from openvis_tpu_torch.models.clip.build import build_clip_params
+from openvis_tpu_torch.models.clip.model import text_tower
+from openvis_tpu_torch.models.clip.prompts import get_templates
+from openvis_tpu_torch.models.clip.text_bank import TextEmbeddingBank
+from openvis_tpu_torch.models.clip.tokenizer import SimpleTokenizer
 from openvis_tpu_torch.parallel import dist
 from openvis_tpu_torch.train import build_model, build_train_step, resolve_device
 from openvis_tpu_torch.utils.profiling import StepTimer, trace
@@ -83,9 +91,19 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_text_bank(cfg):
-    raise NotImplementedError(
-        "the CLIP text tower and its text bank are not ported yet (ROADMAP.md, queue 1 item 4)")
+def build_text_bank(cfg, device) -> TextEmbeddingBank:
+    """The prompt-ensembled text bank of ``clip_adapter`` on ``device`` (JAX
+    ``train_net.py:64-87``)."""
+    ca = cfg.model.clip_adapter
+    if not ca.weights:
+        raise SystemExit("model.clip_adapter.weights must point to a CLIP checkpoint (.pt: "
+                         "an OpenAI JIT archive or a state dict)")
+    text = build_clip_params(ca.weights)["text"]
+    vocab = text["token_embedding"]["embedding"].shape[0]
+    enc = text_tower(ca.clip_model_name, vocab, text["positional_embedding"].shape[0])
+    enc.load_state_dict(params_from_flax(text), strict=True)
+    templates = get_templates(ca.prompt_name, ca.predefined_templates)
+    return TextEmbeddingBank(enc, SimpleTokenizer(ca.bpe_vocab), templates, device)
 
 
 def _load_into(model, pretrained, subtree: str = "") -> None:
@@ -114,9 +132,16 @@ def pretrained_init(cfg, model) -> None:
 
 def evaluate(args, cfg, model, bank, device, ckpt_dir) -> None:
     arch = cfg.model.meta_architecture
+    clip_visual_apply = None
+    # the frozen CLIP visual tower of the mask-crop paths (train_net.py:246-277)
     if arch.startswith("OpenVIS") or (cfg.model.clip_adapter.clip_ensemble
                                       and arch.startswith("SimpleBaseline")):
-        engine.build_clip_visual(cfg)  # raises: not ported yet
+        if not cfg.model.clip_adapter.weights:
+            raise SystemExit(
+                "this eval needs the frozen CLIP visual tower (OpenVIS mask-crop scoring / "
+                "SimpleBaseline clip_ensemble): set model.clip_adapter.weights to a CLIP "
+                "checkpoint, or disable model.clip_adapter.clip_ensemble")
+        clip_visual_apply = build_clip_visual(cfg, device)
     src = args.weights or ckpt_dir
     if os.path.isfile(src):
         _load_into(model, segmenter_state(src, cfg), "segmenter")
@@ -134,7 +159,7 @@ def evaluate(args, cfg, model, bank, device, ckpt_dir) -> None:
     for ds in cfg.datasets.test:
         names = list(catalog.get(ds).thing_classes)
         metrics = engine.evaluate_dataset(cfg, model, ds, bank.encode(names), args.max_videos,
-                                          device=device)
+                                          clip_visual_apply=clip_visual_apply, device=device)
         if dist.rank() == 0:
             logger.info("%s: %s", ds, json.dumps(metrics))
             with open(os.path.join(cfg.output_dir, f"metrics_{ds}.json"), "w") as f:
@@ -205,7 +230,7 @@ def run(args, device) -> None:
     ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
     # class names of the training taxonomy (simplebsl.py:50-57)
     class_names = list(catalog.get(cfg.datasets.train[0]).thing_classes)
-    bank = build_text_bank(cfg)
+    bank = build_text_bank(cfg, device)
     model = init_params(build_model(cfg, device), seed=cfg.seed)
     pretrained_init(cfg, model)
     if args.eval_only:
