@@ -85,10 +85,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      whole ensemble engine at the test-tiny CLIP shape on phase 10's f32
      check video, card (kernels) against CPU (plain)
 
+  13. SANOnline with its recipe's model
+     (``configs/openvoc_ytvis_coco/san_online_R50_bs16_6000st.yaml``: the
+     side-adapter CLIP split of a random ViT-B/16 in OpenAI's layout, read by
+     the CLI's reader from phase 11's CLIP files): three 10x384x640 bf16
+     windows with their split (CLIP front, segmenter, CLIP post, tracking and
+     top-k) and TFLOP/s against FLOPS.json's ``san_online_r50_inference``; an
+     f32 window at 192x320 on the card against the CPU; the train step at
+     1x2x480x864 (bf16 AMP, the aux layers' CLIP logits), the tower bit-equal
+     after it and SAN's own parameters moved; its f32 loss and gradients at
+     1x2x192x320, card against CPU; the engine with the recipe's eval settings
+     over phase 10's dataset, K4 on its tracking costs against
+     ``hungarian_plain``; the CLI as users train it (16 clips of 2 frames, 3
+     steps, a checkpoint), then ``--eval-only``
+
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
 engine's whole-video run of phase 10, the CLI's training and eval runs of
-phase 11 and the ensemble's run of phase 12), its error
+phase 11, the ensemble's run of phase 12 and SAN's window, train step,
+engine and CLI runs of phase 13), its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -320,6 +335,17 @@ CLI_RESUME_LOSS_RTOL = 1e-4
 DP_TOL = {"float32": {"loss_rtol": 1e-3, "grad_norm_rtol": 1e-3, "grad_diff_rel_norm": 1e-2},
           "bf16 AMP": {"loss_rtol": 2e-2, "grad_norm_rtol": 2e-2, "grad_diff_rel_norm": 0.1}}
 DP_JOIN_S = 600
+# phase 13: SANOnline with its recipe's model (ResNet-50, 6 encoder layers, the
+# side-adapter decoder with 100 queries and 9+1 layers, a random ViT-B/16 split
+# at block 9 with taps 3, 6, 9); the CLI trains it as users do (16 clips of 2
+# frames a step) for SAN_CLI_STEPS steps
+SAN_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "san_online_R50_bs16_6000st.yaml")
+SAN_CLI_STEPS = 3
+# the parameters SAN adds that train, each of which must move in a step (the
+# tower under clip_adapter.visual must not)
+SAN_TRAINED = ("clip_adapter.bg_embed", "clip_adapter.logit_scale",
+               "clip_adapter.attn_proj0.weight",
+               "segmenter.predictor.heads.attn_embed.layer0.weight")
 
 
 def emit(obj) -> None:
@@ -1106,35 +1132,49 @@ def phase_slice(card: str, rec: MsdaRecorder):
 
 def phase_slice_vs_plain():
     """One f32 window of CHECK_FRAMES frames: card (kernels) vs CPU (plain)."""
+    cfg = _full_config()
+    cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 1)
+    _hold_window_to_plain("slice_kernels_vs_plain", cfg, cpu_model, FRAME_H, FRAME_W)
+
+
+def _hold_window_to_plain(phase, cfg, cpu_model, h, w):
+    """Phase 7's comparison: one f32 window of CHECK_FRAMES frames at (h, w)
+    through ``make_eval_fn`` of ``cpu_model`` on the CPU (plain) and of a copy
+    on the card (kernels), TF32 off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _full_config()
-    cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 1).eval()
+    cpu_model = cpu_model.eval()
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
     rng = np.random.RandomState(SEED + 1)
-    frames = torch.from_numpy(
-        rng.randn(CHECK_FRAMES, FRAME_H, FRAME_W, 3).astype(np.float32))
+    frames = torch.from_numpy(rng.randn(CHECK_FRAMES, h, w, 3).astype(np.float32))
     text = torch.from_numpy(_text(rng))
+    t0 = time.perf_counter()
     ref = train.make_eval_fn(cfg, cpu_model)(frames, text)
+    cpu_s = time.perf_counter() - t0
+    reset_counts()
     got = {k: v.cpu() for k, v in train.make_eval_fn(cfg, gpu_model)(
         frames.to(DEVICE), text.to(DEVICE)).items()}
+    launches = read_counts()
     q = cfg.model.transformer_decoder.num_queries
-    _check_outputs(got, q, K_CLASSES, CHECK_FRAMES, FRAME_H, FRAME_W, "kernel slice")
+    _check_outputs(got, q, K_CLASSES, CHECK_FRAMES, h, w, phase)
     score_err = (got["scores"] - ref["scores"]).abs().max().item()
     same_pairs = bool(torch.equal(got["labels"], ref["labels"])
                       and torch.equal(got["query_idx"], ref["query_idx"]))
     mref, mgot = ref["mask_logits"], got["mask_logits"]
     mask_rel = ((mgot - mref).abs().max() / mref.abs().max()).item()
     sign_agree = ((mgot > 0) == (mref > 0)).float().mean().item()
-    emit({"phase": "slice_kernels_vs_plain", "dtype": "float32", "tf32": False,
-          "frames": CHECK_FRAMES, "frame_hw": [FRAME_H, FRAME_W],
+    emit({"phase": phase, "dtype": "float32", "tf32": False,
+          "frames": CHECK_FRAMES, "frame_hw": [h, w],
           "max_abs_score_err": score_err, "labels_and_query_idx_equal": same_pairs,
           "mask_max_err_rel_to_max": mask_rel, "mask_sign_agree": sign_agree,
+          "kernel_launches": launches, "cpu_s": cpu_s,
           "tol": {"score_atol": SLICE_SCORE_ATOL, "mask_rel_to_max": SLICE_MASK_REL_TO_MAX,
                   "sign_agree": SLICE_SIGN_AGREE}})
     if not (same_pairs and score_err <= SLICE_SCORE_ATOL
             and mask_rel <= SLICE_MASK_REL_TO_MAX and sign_agree >= SLICE_SIGN_AGREE):
-        raise AssertionError("the kernel slice disagrees with the plain slice")
+        raise AssertionError(f"{phase}: the kernel window disagrees with the plain window")
+    if launches["msda_fwd"] == 0 or launches["hungarian"] == 0:
+        raise AssertionError(f"{phase}: the card's window skipped a kernel: {launches}")
 
 
 def _train_batch(rng, h, w, n, device):
@@ -1150,6 +1190,20 @@ def _train_batch(rng, h, w, n, device):
     )
     return {"pixels": pixels.to(device), "targets": targets.to(device),
             "text_feats": torch.from_numpy(_text(rng)).to(device)}
+
+
+def _train_launches(cfg, h, w, steps):
+    """K1-K6 launches of ``steps`` train steps on an (h, w) canvas: per
+    decoder layer K5 samples the masks for the matcher and for the two loss
+    point sets (and, at most KERNEL_MAX_HW pixels, the targets at the same
+    three), K6 takes the two loss samplings' gradients; K4 once a step."""
+    layers = cfg.model.transformer_decoder.dec_layers + 1
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    target_samplings = 3 if h * w <= KERNEL_MAX_HW else 0
+    per_step = {"msda_fwd": enc, "msda_dcoord": enc, "msda_dvalue": enc, "hungarian": 1,
+                "point_sample_fwd": (3 + target_samplings) * layers,
+                "point_sample_dvalue": 2 * layers}
+    return {k: v * steps for k, v in per_step.items()}
 
 
 def phase_train(card: str, rec: MsdaRecorder):
@@ -1180,16 +1234,7 @@ def phase_train(card: str, rec: MsdaRecorder):
         torch.cuda.synchronize()
         launches = read_counts()
     ms = start.elapsed_time(end) / TRAIN_STEPS
-    layers = cfg.model.transformer_decoder.dec_layers + 1
-    enc = cfg.model.pixel_decoder.transformer_enc_layers
-    # per decoder layer K5 samples the masks for the matcher and for the two
-    # loss point sets, K6 takes the two loss samplings' gradients; targets
-    # above KERNEL_MAX_HW pixels (480x864) take the plain gather path
-    target_samplings = 3 if TRAIN_H * TRAIN_W <= KERNEL_MAX_HW else 0
-    per_step = {"msda_fwd": enc, "msda_dcoord": enc, "msda_dvalue": enc, "hungarian": 1,
-                "point_sample_fwd": (3 + target_samplings) * layers,
-                "point_sample_dvalue": 2 * layers}
-    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
     # K5 by call shape: the matcher's and the two loss point sets' samplings
     by_shape = {case: shapes.counts.pop(shape, 0) for case, shape in SAMPLER_CASES.items()}
     other_shapes = {str(k): v for k, v in shapes.counts.items()}
@@ -1241,26 +1286,39 @@ def _loss_and_grads(cfg, model, batch, records):
     return loss.item(), {k: v.item() for k, v in metrics.items()}, dict(zip(names, grads))
 
 
+def _offsets_off_centres(model, seed):
+    """Move every encoder sample off the pixel centres where the ring-bias
+    init puts it: there the bilinear slope is one-sided and an ulp picks the
+    side."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MSDeformAttnModule):
+                m.sampling_offsets.weight.copy_(
+                    torch.randn(m.sampling_offsets.weight.shape, generator=gen) * 0.02)
+    return model
+
+
 def phase_train_vs_plain():
     """One f32 train-step loss and gradient: card (kernels) vs CPU (plain),
     from the same weights and the same criterion points (drawn on a CPU
     generator on both sides)."""
+    cfg = _full_config(amp=False)
+    cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 2)
+    _hold_train_to_plain("train_kernels_vs_plain", cfg, _offsets_off_centres(cpu_model, SEED + 2),
+                         TRAIN_CHECK_PARAMS)
+
+
+def _hold_train_to_plain(phase, cfg, cpu_model, check_params):
+    """Phase 9's comparison of ``cpu_model`` (f32) on the CPU and a copy on
+    the card, with the gradients of ``check_params`` held element for
+    element."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the CPU side's oneDNN f32 convolution weight-gradient differs from a
     # float64 run by up to 1.5 % of its largest element in one ResNet layer;
     # PyTorch's own CPU convolution does not
     torch.backends.mkldnn.enabled = False
-    cfg = _full_config(amp=False)
-    cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 2)
-    # move every encoder sample off the pixel centres where the ring-bias init
-    # puts it: there the bilinear slope is one-sided and an ulp picks the side
-    gen = torch.Generator().manual_seed(SEED + 2)
-    with torch.no_grad():
-        for m in cpu_model.modules():
-            if isinstance(m, MSDeformAttnModule):
-                m.sampling_offsets.weight.copy_(
-                    torch.randn(m.sampling_offsets.weight.shape, generator=gen) * 0.02)
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
     batch = _train_batch(np.random.RandomState(SEED + 2), CHECK_TRAIN_H, CHECK_TRAIN_W,
                          CHECK_TRAIN_N, "cpu")
@@ -1279,7 +1337,7 @@ def phase_train_vs_plain():
     losses = {"total": (got_loss, ref_loss), **{k: (got_m[k], ref_m[k]) for k in ref_m}}
     loss_rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, (a, b) in losses.items()}
     grad_rel = {}
-    for name in TRAIN_CHECK_PARAMS:
+    for name in check_params:
         r, a = ref_g[name], got_g[name].cpu()
         grad_rel[name] = ((a - r).abs().max() / r.abs().max()).item()
     (ref_cost, ref_cols), (_, got_cols) = ref_rec[0], got_rec[0]
@@ -1290,7 +1348,7 @@ def phase_train_vs_plain():
         for c, a, b in zip(ref_cost.double(), got_cols, ref_cols):
             gap = abs(c[rows, a].sum() - c[rows, b].sum()).item()
             cost_gap = max(cost_gap, gap / max(abs(c[rows, b].sum().item()), 1e-30))
-    emit({"phase": "train_kernels_vs_plain", "dtype": "float32", "tf32": False,
+    emit({"phase": phase, "dtype": "float32", "tf32": False,
           "batch": [1, TRAIN_T, CHECK_TRAIN_H, CHECK_TRAIN_W], "targets": CHECK_TRAIN_N,
           "losses_kernel_plain": losses, "loss_rel_err": loss_rel,
           "grad_norm_kernel_plain": [got_norm, ref_norm],
@@ -1923,14 +1981,8 @@ def phase_cli(card: str, clip):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         lines = _metrics_lines(out)
         cfg = load_config(CLI_CONFIG, common)
-        layers = cfg.model.transformer_decoder.dec_layers + 1
         enc = cfg.model.pixel_decoder.transformer_enc_layers
-        h, w = cfg.input.pad_size
-        target_samplings = 3 if h * w <= KERNEL_MAX_HW else 0
-        per_step = {"msda_fwd": enc, "msda_dcoord": enc, "msda_dvalue": enc, "hungarian": 1,
-                    "point_sample_fwd": (3 + target_samplings) * layers,
-                    "point_sample_dvalue": 2 * layers}
-        expected = {k: v * CLI_MAX_ITER for k, v in per_step.items()}
+        expected = _train_launches(cfg, *cfg.input.pad_size, CLI_MAX_ITER)
         ckpt_dir = os.path.join(out, "checkpoints")
         steps_ms = [r["step_s"] * 1e3 for r in lines]
         waits_ms = [r["data_wait_s"] * 1e3 for r in lines]
@@ -2297,6 +2349,330 @@ def _dp_check(overrides, batch, root):
         raise AssertionError("2 processes disagree with 1")
 
 
+class SanSpans:
+    """CUDA events around SAN's stages in each window of ``make_eval_fn``:
+    the CLIP front encode, the segmenter, the CLIP post encode, and from the
+    start of tracking to the window's end (tracking and top-k)."""
+
+    STAGES = ("clip_front", "segmenter", "clip_post")
+
+    def __init__(self, model):
+        self._targets = ((model.clip_adapter, "front_encode"), (model.segmenter, "forward"),
+                         (model.clip_adapter, "post_encode"))
+
+    def __enter__(self):
+        self.events = {k: [] for k in (*self.STAGES, "windows")}
+        self._track_starts = []
+        self._track = train.track_by_embeds
+
+        def around(key, fn):
+            def timed(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return timed
+
+        def track(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._track_starts.append(ev)
+            return self._track(*a, **kw)
+
+        for key, (obj, name) in zip(self.STAGES, self._targets):
+            setattr(obj, name, around(key, getattr(obj, name)))
+        train.track_by_embeds = track
+        self.window = lambda fn: around("windows", fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name in self._targets:
+            del obj.__dict__[name]  # the class's method again
+        train.track_by_embeds = self._track
+
+    def split_ms(self):
+        """Milliseconds of each stage summed over the windows."""
+        torch.cuda.synchronize()
+        out = {k: sum(a.elapsed_time(b) for a, b in self.events[k]) for k in self.STAGES}
+        out["tracking_topk"] = sum(t.elapsed_time(end) for t, (_, end)
+                                   in zip(self._track_starts, self.events["windows"]))
+        return out
+
+
+def _san_config(clip, *overrides):
+    """The SAN recipe with the CLIP files ``clip`` (weights, bpe) and ``overrides``."""
+    return load_config(SAN_CONFIG, [f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}", *overrides])
+
+
+def _san_model(cfg, tree, device, seed):
+    """SANOnline from the seed, its CLIP tower from ``tree`` through the CLI's reader."""
+    import train_net_torch as cli
+
+    model = init_params(train.build_model(cfg, device=device), seed=seed)
+    cli.load_clip_visual(model, tree)
+    return model
+
+
+def phase_san_window(card, cfg, tree):
+    """13.1: the SANOnline eval window at full width, bf16, three windows, with
+    its split and TFLOP/s against FLOPS.json's count; returns the launches."""
+    model = _san_model(cfg, tree, DEVICE, SEED).to(dtype=torch.bfloat16).eval()
+    eval_fn = train.make_eval_fn(cfg, model)
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    windows = [torch.from_numpy(rng.randn(t, h, w, 3).astype(np.float32)).to(
+        DEVICE, torch.bfloat16) for _ in range(NUM_WINDOWS)]
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    eval_fn(windows[0], text)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    outs = [eval_fn(x, text) for x in windows]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / NUM_WINDOWS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the split, from a second pass with events around each stage
+    with SanSpans(model) as spans:
+        timed = spans.window(eval_fn)
+        for x in windows:
+            timed(x, text)
+    split = {k: v / NUM_WINDOWS for k, v in spans.split_ms().items()}
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"SAN window {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS,
+                "hungarian": NUM_WINDOWS}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "FLOPS.json")) as f:
+        flop = json.load(f)["san_online_r50_inference"]["flops"]
+    emit({"phase": "san_window_full_width", "config": SAN_CONFIG, "dtype": "bfloat16",
+          "windows": NUM_WINDOWS, "frames_per_window": t, "frame_hw": [h, w],
+          "ms_per_window": ms, "frames_per_s": t / (ms / 1e3),
+          "split_ms_per_window": split, "peak_mem_gib": peak,
+          "flops_json_tflop_per_window": flop / 1e12,
+          "tflop_per_s": flop / (ms / 1e3) / 1e12, "bf16_peak_share": flop / (ms / 1e3) / BF16_FLOPS,
+          "launches": launches, "expected_launches": expected, "card": card})
+    if launches != expected:
+        raise AssertionError(f"SAN window launches {launches} != {expected}")
+    return launches
+
+
+def phase_san_vs_plain(cfg, tree):
+    """13.2: one f32 SAN window at full width on the card (kernels) against
+    the CPU (plain), TF32 off, at a frame size the CPU can take."""
+    _hold_window_to_plain("san_kernels_vs_plain", cfg, _san_model(cfg, tree, "cpu", SEED + 1),
+                          CHECK_TRAIN_H, CHECK_TRAIN_W)
+
+
+def phase_san_train(card, cfg, tree):
+    """13.3: the SAN train step at full width (bench.py's shape), bf16 AMP with
+    f32 masters and the aux layers' CLIP logits; returns the launches."""
+    model = _san_model(cfg, tree, DEVICE, SEED)
+    visual = {n: p.detach().clone() for n, p in model.clip_adapter.visual.named_parameters()}
+    trained = {n: p for n, p in model.named_parameters() if n in SAN_TRAINED}
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    step(batch, gen)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    tower_fixed = all(torch.equal(p, visual[n])
+                      for n, p in model.clip_adapter.visual.named_parameters())
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in trained.items()}
+    frozen = sum(p.numel() for p in model.clip_adapter.visual.parameters())
+    emit({"phase": "san_train_full_width", "dtype": "bf16 AMP, f32 masters",
+          "supervise_aux_logits": model.supervise_aux_logits,
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "clip_visual_params": frozen, "clip_visual_bit_equal": tower_fixed,
+          "trained_moved": moved, "card": card})
+    if launches != expected:
+        raise AssertionError(f"SAN train-step launches {launches} != {expected}")
+    if not all(np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a SAN train-step loss or grad norm is not finite")
+    if not tower_fixed or not all(moved.values()) or len(moved) != len(SAN_TRAINED):
+        raise AssertionError(f"the frozen tower changed or a trained parameter did not: {moved}")
+    return launches
+
+
+def phase_san_train_vs_plain(cfg, tree):
+    """13.4: one f32 SAN train-step loss and gradient, card against CPU."""
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = _offsets_off_centres(_san_model(f32, tree, "cpu", SEED + 2), SEED + 2)
+    _hold_train_to_plain("san_train_kernels_vs_plain", f32, cpu_model,
+                         TRAIN_CHECK_PARAMS + SAN_TRAINED)
+
+
+def phase_san_engine(card, clip, tree):
+    """13.5: the engine with the SAN recipe's eval settings over phase 10's
+    dataset: a run with K4 recorded (the warm-up), then the timed run with
+    its split and peak; K4 on the engine's own costs against
+    hungarian_plain.  Returns the launches of the timed run."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_san_engine_")
+    try:
+        _, write_s = _write_engine_dataset(root)
+        cfg = _san_config(clip, f"datasets.root={root}", f"datasets.test=[{ENGINE_DATASET}]",
+                          f"output_dir={os.path.join(root, 'out')}")
+        model = _san_model(cfg, tree, DEVICE, SEED)
+        text = _text(np.random.RandomState(SEED))
+        with HungarianRecorder() as tracking:
+            _engine_run(cfg, model, text, DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = _engine_expected(cfg, launches)
+        finite = all(np.isfinite(v) for v in metrics.values())
+        t0 = time.perf_counter()
+        plain = _plain_assignments(tracking.costs)
+        plain_s = time.perf_counter() - t0
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        emit({"phase": "san_engine_full_width", "config": SAN_CONFIG,
+              "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+              "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
+              "window": engine.window_size(cfg), "metrics": metrics, "metrics_finite": finite,
+              "predictions": len(spans.preds), "launches": launches,
+              "expected_launches": expected, "frames": spans.frames, "wall_s": wall,
+              "frames_per_s": spans.frames / wall, "split_s": _engine_split(spans, wall),
+              "peak_mem_gib": peak, "k4_problems": len(plain), "k4_equal_to_plain": not differ,
+              "k4_problems_differing": differ, "k4_plain_seconds": plain_s,
+              "dataset_write_s": write_s, "card": card})
+        if launches != expected:
+            raise AssertionError(f"SAN engine launches {launches} != {expected}")
+        if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+            raise AssertionError(f"SAN engine metrics {metrics}, {len(spans.preds)} predictions")
+        if differ or len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"K4 on the SAN engine's costs differs from hungarian_plain: "
+                                 f"{differ}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_san_cli(card, clip):
+    """13.6: the CLI with the SAN recipe as users train it (16 clips of 2
+    frames a step), 3 steps and a checkpoint, then ``--eval-only``; returns
+    the launches of the two runs."""
+    import train_net_torch as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_san_cli_")
+    saves = []
+    orig = cli.save_checkpoint
+
+    def timed_save(directory, step, state):
+        t0 = time.perf_counter()
+        path = orig(directory, step, state)
+        saves.append({"step": step, "ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": os.path.getsize(path)})
+        return path
+
+    cli.save_checkpoint = timed_save
+    try:
+        out = os.path.join(root, "out")
+        common = _cli_data(root) + [f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}",
+                                    f"solver.max_iter={SAN_CLI_STEPS}",
+                                    f"solver.checkpoint_period={SAN_CLI_STEPS}",
+                                    f"output_dir={out}"]
+
+        def run(*flags):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(["--config-file", SAN_CONFIG, *flags, *common])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, read_counts()
+
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches = run()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lines = _metrics_lines(out)
+        cfg = load_config(SAN_CONFIG, common)
+        expected = _train_launches(cfg, *cfg.input.pad_size, SAN_CLI_STEPS)
+        steps_ms = [r["step_s"] * 1e3 for r in lines]
+        waits_ms = [r["data_wait_s"] * 1e3 for r in lines]
+        finite = all(np.isfinite(r[k]) for r in lines
+                     for k in ("total_loss", "loss_ce", "loss_mask", "loss_dice", "grad_norm"))
+        emit({"phase": "san_cli_train", "config": SAN_CONFIG,
+              "batch": [cfg.solver.ims_per_batch, cfg.input.sampling_frame_num],
+              "points": cfg.model.criterion.train_num_points, "amp": cfg.solver.amp,
+              "steps": [r["step"] for r in lines], "ms_per_step": steps_ms,
+              "ms_per_step_after_first": float(np.mean(steps_ms[1:])),
+              "loader_wait_ms": waits_ms, "losses": [r["total_loss"] for r in lines],
+              "grad_norms": [r["grad_norm"] for r in lines], "checkpoint_saves": saves,
+              "peak_mem_gib": peak, "wall_s": wall, "launches": launches,
+              "expected_launches": expected, "card": card})
+        if launches != expected:
+            raise AssertionError(f"SAN CLI train launches {launches} != {expected}")
+        if [r["step"] for r in lines] != list(range(1, SAN_CLI_STEPS + 1)) or not finite:
+            raise AssertionError(f"the SAN CLI's metrics.jsonl is not {SAN_CLI_STEPS} finite steps")
+        if [s["step"] for s in saves] != [SAN_CLI_STEPS]:
+            raise AssertionError(f"SAN checkpoints saved at {saves}")
+
+        ckpt_dir = os.path.join(out, "checkpoints")
+        wall2, launches2 = run("--eval-only", "--weights", ckpt_dir)
+        ds = cfg.datasets.test[0]
+        with open(os.path.join(out, f"metrics_{ds}.json")) as f:
+            metrics = json.load(f)
+        enc = cfg.model.pixel_decoder.transformer_enc_layers
+        expected2 = {**{k: 0 for k in launches2},
+                     "msda_fwd": enc * len(CLI_EVAL_VIDEOS), "hungarian": len(CLI_EVAL_VIDEOS)}
+        emit({"phase": "san_cli_eval", "metrics": metrics, "wall_s": wall2,
+              "launches": launches2, "expected_launches": expected2, "card": card})
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the SAN CLI's eval wrote {metrics}")
+        if launches2 != expected2:
+            raise AssertionError(f"SAN CLI eval launches {launches2} != {expected2}")
+        return launches, launches2
+    finally:
+        cli.save_checkpoint = orig
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_san(card, clip):
+    """Phase 13: SANOnline with the recipe's model (the side-adapter CLIP
+    split over a random ViT-B/16 in OpenAI's layout from ``clip``); returns
+    its paths' launch counts by name."""
+    import train_net_torch as cli
+
+    cfg = _san_config(clip)
+    tree = cli.read_clip(cfg)
+    launches = {"san_eval": phase_san_window(card, cfg, tree)}
+    phase_san_vs_plain(cfg, tree)
+    launches["san_train"] = phase_san_train(card, cfg, tree)
+    phase_san_train_vs_plain(cfg, tree)
+    launches["san_engine"] = phase_san_engine(card, clip, tree)
+    del tree
+    launches["san_cli_train"], launches["san_cli_eval"] = phase_san_cli(card, clip)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -2324,6 +2700,7 @@ def main() -> int:
         clip = write_clip_files(clip_dir)
         cli_launches, cli_eval_launches, cli_recorded = phase_cli(card, clip)
         ensemble_launches = phase_ensemble(card, clip)
+        san_launches = phase_san(card, clip)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in cli_recorded.items():
@@ -2345,7 +2722,8 @@ def main() -> int:
          "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name],
                               "engine": engine_launches[name], "cli_train": cli_launches[name],
                               "cli_eval": cli_eval_launches[name],
-                              "ensemble": ensemble_launches[name]},
+                              "ensemble": ensemble_launches[name],
+                              **{path: n[name] for path, n in san_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -10,8 +10,10 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
   * Embed ``embedding``             -> ``weight`` (CLIP's token embedding)
   * everything else as it is: ``bias``, the ``FrozenAffine`` ``scale``/``bias``
     of the ResNet, ``level_embed``, ``query_feat``, ``query_embed``,
-    ``non_object_embedding``, and CLIP's ``proj``, ``text_projection``,
-    ``class_embedding``, ``positional_embedding`` and ``logit_scale``.
+    ``non_object_embedding``, CLIP's ``proj``, ``text_projection``,
+    ``class_embedding``, ``positional_embedding`` and ``logit_scale``, and
+    SAN's ``bg_embed`` (its 1x1 ``attn_proj``/``attn_mlp`` kernels are Conv
+    kernels, its ``attn_embed`` Dense layers).
 
 The CLIP towers keep flax's module levels, the ``ln`` inside each
 ``LayerNormF32`` included, so their keys need no other rule; the bias-free
@@ -127,9 +129,12 @@ def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
 def init_params(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random init following the JAX package's initializers: lecun-normal
     kernels with zero biases, unit norms, identity frozen affines, N(0, 1)
-    level/query embeddings, N(0, hidden^-1/2) no-object embedding, and the
+    level/query embeddings, N(0, hidden^-1/2) no-object embedding, the
     MSDeformAttn ring bias with zero sampling-offset and attention-weight
-    kernels.  Draws on the CPU, so a seed gives the same weights everywhere."""
+    kernels, CLIP's embeddings and projections (N(0, 0.02) class, N(0, 0.01)
+    positional, N(0, width^-1/2) projections), SAN's N(0, dim^-1/2)
+    background row and log(1/0.07) logit scale.  Draws on the CPU, so a seed
+    gives the same weights everywhere."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -148,6 +153,15 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             elif name == "non_object_embedding":
                 hidden = mod.segmenter.predictor.hidden_dim
                 p.copy_(torch.randn(p.shape, generator=g) * hidden ** -0.5)
+            elif name in ("class_embedding", "positional_embedding"):
+                std = 0.02 if name == "class_embedding" else 0.01
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+            elif name in ("proj", "text_projection"):    # (width, embed_dim)
+                p.copy_(torch.randn(p.shape, generator=g) * p.shape[0] ** -0.5)
+            elif name == "bg_embed":                      # (1, embed_dim)
+                p.copy_(torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5)
+            elif name == "logit_scale":
+                p.fill_(math.log(1 / 0.07))
     # after the generic pass, which reaches a module's Linears after the module
     for mod in model.modules():
         if isinstance(mod, MSDeformAttnModule):

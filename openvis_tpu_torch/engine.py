@@ -1,7 +1,7 @@
 """Evaluation engine: windowed video inference + evaluator loop.
 
 Port of ``openvis_tpu/engine.py``, the path of the frame-decoder (online)
-SimpleBaseline: each video runs through the per-frame stack in windows of
+SimpleBaseline and SAN: each video runs through the per-frame stack in windows of
 ``window_size(cfg)`` frames, the windows' outputs are concatenated over time,
 identity is restored by embedding tracking over the whole video
 (``minvis.py:320-338``), the top-k (query, class) pairs are kept and their
@@ -21,6 +21,9 @@ frames:
 * AMP eval (``test.amp``) runs the model through ``torch.func.functional_call``
   on bf16 copies of its parameters, so the caller's f32 parameters are never
   touched.
+* SANOnline runs without its aux layers' CLIP logits (``train.eval_model``;
+  JAX ``engine.py:315-317``); the CLIP ensemble is SimpleBaseline's only
+  (JAX ``train_net.py:250-253``).
 
 With a CLIP visual tower (``clip_towers.build_clip_visual``) and
 ``clip_adapter.clip_ensemble``, SimpleBaselineOnline's open-vocabulary
@@ -58,12 +61,13 @@ from openvis_tpu_torch.models.meta.simple_baseline import eval_scores
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
 from openvis_tpu_torch.parallel import dist
-from openvis_tpu_torch.train import resolve_device
+from openvis_tpu_torch.train import eval_model, resolve_device
 
 logger = logging.getLogger(__name__)
 
 # the ROADMAP.md queue 1 item that ports each other meta architecture's eval
-_ITEM_OF_ARCH = {"SANOnline": 5, "SAN": 5, "BriVIS": 6, "OpenVIS": 7, "OpenVISOnline": 7}
+_ITEM_OF_ARCH = {"SAN": 8, "BriVIS": 6, "OpenVIS": 7, "OpenVISOnline": 7}
+_PORTED_ARCHS = ("SimpleBaselineOnline", "SANOnline")
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -135,6 +139,7 @@ def make_window_fn(cfg: Config, model: nn.Module) -> Callable:
     """f(params, frames (W, H, Wd, 3), text_feats) -> the window's raw outputs:
     logits (W, Q, C), masks (Q, W, h, w) and embeds (W, Q, C).  ``params``
     maps the model's parameter names to the tensors to run it with."""
+    model = eval_model(model)
 
     def fn(params, frames, text_feats):
         out = torch.func.functional_call(model, params, (frames, frames.shape[0], text_feats))
@@ -192,7 +197,7 @@ def make_ensemble_fn(cfg: Config, clip_visual_apply, params: Dict[str, torch.Ten
 
 def _check_ported(cfg: Config) -> None:
     arch = cfg.model.meta_architecture
-    if arch != "SimpleBaselineOnline":
+    if arch not in _PORTED_ARCHS:
         raise _not_ported(f"the evaluation of {arch!r}", _ITEM_OF_ARCH.get(arch, 8))
 
 
@@ -210,10 +215,10 @@ def evaluate_dataset(
     evaluator's metrics.  Runs on ``device`` (the card unless the caller
     passes ``"cpu"``); the model's parameters are read, never modified.
     ``clip_visual_apply`` (``clip_towers.build_clip_visual``, on the same
-    device) turns on the CLIP ensemble where ``clip_adapter.clip_ensemble``
-    asks for it, as in the JAX engine.  Under a process group every process
-    calls it; rank 0 returns the metrics of all the processes' videos, the
-    others ``{}``."""
+    device) turns on SimpleBaseline's CLIP ensemble where
+    ``clip_adapter.clip_ensemble`` asks for it, as in the JAX engine.  Under a
+    process group every process calls it; rank 0 returns the metrics of all
+    the processes' videos, the others ``{}``."""
     _check_ported(cfg)
     device = resolve_device(device)
     evaluator = make_evaluator(catalog.get(dataset_name))
@@ -224,7 +229,8 @@ def evaluate_dataset(
     window_fn = make_window_fn(cfg, model)
     post_fn = make_postprocess_fn(cfg)
     ensemble_fn = None
-    if clip_visual_apply is not None and cfg.model.clip_adapter.clip_ensemble:
+    if (clip_visual_apply is not None and cfg.model.clip_adapter.clip_ensemble
+            and cfg.model.meta_architecture.startswith("SimpleBaseline")):
         ensemble_fn = make_ensemble_fn(cfg, clip_visual_apply, params, text)
 
     counts = []  # predictions of each video, in this process's order

@@ -12,15 +12,15 @@ Port of ``openvis_tpu/models/clip/model.py`` (OpenAI's CLIP architecture):
   * the ViT vision tower: patch conv, class token, positional embedding
     resized bicubically to the input's patch grid, ``ln_pre``, blocks,
     ``ln_post`` and ``proj``, with the block API ``embed`` /
-    ``run_blocks(lo, hi, taps)`` / ``finalize``.
+    ``run_blocks(lo, hi, attn_bias, taps, sos_q)`` / ``finalize``;
+  * SAN's biased attention (``side_adapter.py:237-270``): a per-head
+    additive ``attn_bias``, or with ``sos_q`` the sos-split form whose bias
+    covers the sos rows' context columns only.
 
 Module and parameter names mirror the flax ones (``resblock{i}``, the
 LayerNorm's inner ``ln``), so ``convert.params_from_flax`` maps a JAX or a
 converted OpenAI tree onto the ``state_dict``.  Images are NHWC, as in the
 JAX package.
-
-SAN's per-head attention bias and sos queries (``attn_bias``, ``sos_q``) are
-ROADMAP.md queue 1 item 5 and raise.
 """
 
 from __future__ import annotations
@@ -39,11 +39,6 @@ NEG_INF = -1e9
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
-
-
-def _san_not_ported() -> NotImplementedError:
-    return NotImplementedError("SAN's biased attention (attn_bias, sos_q) is not ported yet "
-                               "(ROADMAP.md, queue 1 item 5)")
 
 
 class LayerNormF32(nn.Module):
@@ -69,19 +64,48 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(width, width)
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, L, C); ``attn_mask`` (L, L) additive."""
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                attn_bias: Optional[torch.Tensor] = None, sos_q: int = 0) -> torch.Tensor:
+        """x (B, L, C); ``attn_mask`` (L, L) and ``attn_bias`` (B, H, L, L)
+        additive.
+
+        ``sos_q > 0`` selects SAN's sos-split form: the first ``sos_q`` tokens
+        are sos queries, the rest the context (cls and patches).  The
+        reference's dense bias puts -100 on every context row's sos columns
+        (e^-100 is below f32 resolution), so context rows are plain attention
+        over the context; a sos row sees itself (bias 0, its column first) and
+        the context, and ``attn_bias`` is then (B, H, sos_q, L - sos_q) on
+        those context columns.  The dense (B, H, L, L) bias is never built."""
         b, l, c = x.shape
         h = self.heads
         dh = c // h
         q = self.q_proj(x).reshape(b, l, h, dh).transpose(1, 2)     # (B, H, L, dh)
         k = self.k_proj(x).reshape(b, l, h, dh).transpose(1, 2)
         v = self.v_proj(x).reshape(b, l, h, dh).transpose(1, 2)
-        logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
-        if attn_mask is not None:
-            logits = logits + attn_mask
-        attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        return self.out_proj((attn @ v).transpose(1, 2).reshape(b, l, c))
+        scale = math.sqrt(dh)
+        if sos_q:
+            if attn_mask is not None:
+                raise ValueError("sos_q takes no attn_mask")
+            q_s, q_c = q[:, :, :sos_q], q[:, :, sos_q:]
+            k_s, k_c = k[:, :, :sos_q], k[:, :, sos_q:]
+            v_s, v_c = v[:, :, :sos_q], v[:, :, sos_q:]
+            ac = torch.softmax(((q_c @ k_c.transpose(-1, -2)) / scale).float(), dim=-1)
+            out_c = ac.to(x.dtype) @ v_c                                 # (B, H, Lc, dh)
+            l_self = (q_s * k_s).sum(-1, keepdim=True) / scale          # (B, H, sos_q, 1)
+            l_ctx = (q_s @ k_c.transpose(-1, -2)) / scale
+            if attn_bias is not None:
+                l_ctx = l_ctx + attn_bias
+            a = torch.softmax(torch.cat([l_self, l_ctx], dim=-1).float(), dim=-1).to(x.dtype)
+            out_s = a[..., :1] * v_s + a[..., 1:] @ v_c
+            out = torch.cat([out_s, out_c], dim=2)
+        else:
+            logits = (q @ k.transpose(-1, -2)) / scale
+            if attn_mask is not None:
+                logits = logits + attn_mask
+            if attn_bias is not None:
+                logits = logits + attn_bias
+            out = torch.softmax(logits.float(), dim=-1).to(x.dtype) @ v
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, c))
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -94,10 +118,8 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp_c_proj = nn.Linear(width * 4, width)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
-                attn_bias=None, sos_q: int = 0) -> torch.Tensor:
-        if attn_bias is not None or sos_q:
-            raise _san_not_ported()
-        x = x + self.attn(self.ln_1(x), attn_mask)
+                attn_bias: Optional[torch.Tensor] = None, sos_q: int = 0) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), attn_mask, attn_bias, sos_q)
         return x + self.mlp_c_proj(quick_gelu(self.mlp_c_fc(self.ln_2(x))))
 
 
@@ -180,12 +202,12 @@ class CLIPVisionTransformer(nn.Module):
                    taps: Sequence[int] = (), sos_q: int = 0
                    ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
         """Run blocks [lo, hi); ``taps``: 1-based block indices whose output
-        to record (SAN's ``merge_ids``)."""
-        if attn_bias is not None or sos_q:
-            raise _san_not_ported()
+        to record (SAN's ``merge_ids``); ``attn_bias``: one additive bias (or
+        None) a block, of the form ``sos_q`` selects (``CLIPAttention``)."""
         tapped: Dict[int, torch.Tensor] = {}
         for i in range(lo, hi):
-            x = self.blocks[i](x)
+            bias = attn_bias[i - lo] if attn_bias is not None else None
+            x = self.blocks[i](x, attn_bias=bias, sos_q=sos_q)
             if (i + 1) in taps:
                 tapped[i + 1] = x
         return x, tapped

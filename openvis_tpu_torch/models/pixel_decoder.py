@@ -4,21 +4,23 @@ Port of ``openvis_tpu/models/pixel_decoder.py`` (``MSDeformAttnModule``,
 ``MSDeformAttnEncoderLayer``, ``encoder_reference_points``,
 ``MSDeformAttnEncoder``, ``MSDeformAttnPixelDecoder``):
 
-  * 1x1 input projections (+GroupNorm-32) on {res5, res4, res3};
+  * 1x1 input projections (+GroupNorm-32) on {res5, res4, res3}, plus SAN's
+    ``extra_features`` (the CLIP taps, resized bilinearly to the level where
+    the sizes differ) after the norm;
   * deformable self-attention encoder layers over the flattened 3-level token
     sequence (post-norm, ReLU FFN), with a learned ``level_embed`` added to the
     sine position encoding;
   * FPN tail down to the stride-4 ``mask_features``.
 
 Feature maps are NCHW; tokens are (B, Len, C) in the maps' row-major order.
-Not ported yet: the SAN ``extra_features`` hook, ``BasePixelDecoder`` and
-``DETRTransformer`` (ROADMAP.md, queue 1).
+Not ported yet: ``BasePixelDecoder`` and ``DETRTransformer`` (ROADMAP.md,
+queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -169,13 +171,18 @@ class MSDeformAttnPixelDecoder(nn.Module):
             self.add_module(f"layer{idx}_norm", nn.GroupNorm(32, conv_dim, eps=LN_EPS))
         self.mask_features = nn.Conv2d(conv_dim, mask_dim, 1)
 
-    def forward(self, features: Dict[str, torch.Tensor]):
+    def forward(self, features: Dict[str, torch.Tensor],
+                extra_features: Optional[Sequence[torch.Tensor]] = None):
+        """``extra_features``: one NCHW map a level, top-down (res5, res4,
+        res3), added to the level's normed projection (``msdeformattn.py:338-344``)."""
         srcs, poses, shapes = [], [], []
         for idx, f in enumerate(self.tif):
             x = features[f]
             h, w = x.shape[-2:]
             s = getattr(self, f"input_proj{idx}_conv")(x)
             s = amp_norm(getattr(self, f"input_proj{idx}_norm"), s)
+            if extra_features is not None:
+                s = s + resize_bilinear_torch_hw(extra_features[idx], (h, w))
             pe = position_encoding_2d(h, w, self.conv_dim // 2, s.device).to(s.dtype)
             srcs.append(s.flatten(2).transpose(1, 2))
             poses.append(pe.reshape(1, h * w, self.conv_dim) + self.level_embed[idx])

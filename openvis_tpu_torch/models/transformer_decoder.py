@@ -1,4 +1,5 @@
-"""Mask2Former masked transformer decoder, frame mode with the embedding head.
+"""Mask2Former masked transformer decoder, frame mode with the embedding and
+the side-adapter heads.
 
 Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
 ``MultiheadAttention``, the self/cross/FFN layers, ``attn_bias_from_mask_logits``,
@@ -10,10 +11,15 @@ Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
     layer (``dec_layers + 1`` prediction sets, stacked on a leading axis);
   * masked cross-attention: tokens where the previous prediction's resized
     mask logit is negative (``sigmoid < 0.5``) get an additive ``NEG_INF``
-    bias, except for a query whose mask is off everywhere.
+    bias, except for a query whose mask is off everywhere;
+  * heads: ``embedding`` (a 2-layer MLP to the CLIP width, per query) and
+    SAN's ``side_adapter`` (per CLIP head, attention-bias maps
+    ``einsum(attn_embed(x), attn_features)`` over the mask features
+    downsampled by 4 and run through three 1x1 convolutions,
+    ``side_adapter_frame_...py:48-169``).
 
-Not ported yet: the video mode and the class/proposal/side-adapter/zero-shot/
-ov2seg heads (ROADMAP.md, queue 1).
+Not ported yet: the video mode (ROADMAP.md, queue 1 item 8) and the
+class/proposal/zero-shot/ov2seg heads (queue 1).
 """
 
 from __future__ import annotations
@@ -145,25 +151,35 @@ def attn_bias_from_mask_logits(
 
 
 class PredictionHeads(nn.Module):
-    """decoder_norm -> embedding head (2-layer MLP to the CLIP width) and the
-    3-layer mask-embed MLP dotted with the per-frame mask features."""
+    """decoder_norm -> the head's logits and the 3-layer mask-embed MLP dotted
+    with the per-frame mask features.  ``embedding``: a 2-layer MLP to the
+    CLIP width; ``side_adapter``: a 3-layer MLP whose queries dot the
+    attention features into per-head bias maps."""
 
     def __init__(self, hidden_dim: int, mask_dim: int, head: str = "embedding",
                  clip_dim: int = 512):
         super().__init__()
-        if head != "embedding":
+        self.head = head
+        self.decoder_norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
+        if head == "embedding":
+            self.class_embed = MLP(hidden_dim, clip_dim * 2, clip_dim, 2)
+        elif head == "side_adapter":
+            self.attn_embed = MLP(hidden_dim, hidden_dim, hidden_dim, 3)
+        else:
             raise NotImplementedError(
                 f"decoder head {head!r} is not ported yet (ROADMAP.md, queue 1)"
             )
-        self.decoder_norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.class_embed = MLP(hidden_dim, clip_dim * 2, clip_dim, 2)
         self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3)
 
-    def forward(self, output, mask_features):
-        """output (N, Q, C); mask_features (N, Cm, H, W) -> (embeds, masks
-        (N, Q, H, W), normed output)."""
+    def forward(self, output, mask_features, attn_features=None):
+        """output (N, Q, C); mask_features (N, Cm, H, W); attn_features (N,
+        nH, C, h, w) for ``side_adapter`` -> (embeds (N, Q, D) or biases (N,
+        nH, Q, h, w), masks (N, Q, H, W), normed output)."""
         x = amp_norm(self.decoder_norm, output)
-        logits = self.class_embed(x)
+        if self.head == "embedding":
+            logits = self.class_embed(x)
+        else:
+            logits = torch.einsum("bqc,bnchw->bnqhw", self.attn_embed(x), attn_features)
         masks = torch.einsum("bqc,bchw->bqhw", self.mask_embed(x), mask_features)
         return logits, masks, x
 
@@ -176,7 +192,7 @@ class MaskedTransformerDecoder(nn.Module):
                  hidden_dim: int = 256, num_queries: int = 100, nheads: int = 8,
                  dim_feedforward: int = 2048, dec_layers: int = 9,
                  pre_norm: bool = False, mask_dim: int = 256, clip_dim: int = 512,
-                 in_channels: int = 256):
+                 clip_heads: int = 12, in_channels: int = 256):
         super().__init__()
         if mode != "frame":
             raise NotImplementedError(
@@ -184,6 +200,7 @@ class MaskedTransformerDecoder(nn.Module):
             )
         self.nlvl = 3
         self.hidden_dim, self.num_queries, self.dec_layers = hidden_dim, num_queries, dec_layers
+        self.head, self.clip_heads = head, clip_heads
         self.level_embed = nn.Parameter(torch.zeros(self.nlvl, hidden_dim))
         self.query_feat = nn.Parameter(torch.zeros(num_queries, hidden_dim))
         self.query_embed = nn.Parameter(torch.zeros(num_queries, hidden_dim))
@@ -191,6 +208,10 @@ class MaskedTransformerDecoder(nn.Module):
         if self.input_project:
             for i in range(self.nlvl):
                 self.add_module(f"input_proj{i}", nn.Conv2d(in_channels, hidden_dim, 1))
+        if head == "side_adapter":
+            self.attn_mlp0 = nn.Conv2d(mask_dim, hidden_dim, 1)
+            self.attn_mlp1 = nn.Conv2d(hidden_dim, hidden_dim, 1)
+            self.attn_mlp2 = nn.Conv2d(hidden_dim, hidden_dim * clip_heads, 1)
         self.heads = PredictionHeads(hidden_dim, mask_dim, head, clip_dim)
         for i in range(dec_layers):
             self.add_module(f"cross_attn{i}", CrossAttentionLayer(hidden_dim, nheads, pre_norm))
@@ -222,8 +243,17 @@ class MaskedTransformerDecoder(nn.Module):
         output = self.query_feat[None].expand(nb, -1, -1)
         qpos = self.query_embed[None].expand(nb, -1, -1)
 
+        af = None
+        if self.head == "side_adapter":
+            # (hm // 4, wm // 4), as the JAX package sizes it: the reference's
+            # scale_factor=0.25 differs where hm or wm is not a multiple of 4
+            hm, wm = mask_features.shape[-2:]
+            af = resize_bilinear_torch_hw(mask_features, (hm // 4, wm // 4))
+            af = self.attn_mlp2(F.relu(self.attn_mlp1(F.relu(self.attn_mlp0(af)))))
+            af = af.reshape(nb, self.clip_heads, self.hidden_dim, *af.shape[-2:])
+
         all_logits, all_masks = [], []
-        logits, masks, _ = self.heads(output, mask_features)
+        logits, masks, _ = self.heads(output, mask_features, af)
         all_logits.append(logits)
         all_masks.append(masks)
         attn_bias = attn_bias_from_mask_logits(masks, size_list[0])
@@ -235,7 +265,7 @@ class MaskedTransformerDecoder(nn.Module):
             )
             output = getattr(self, f"self_attn{i}")(output, qpos)
             output = getattr(self, f"ffn{i}")(output)
-            logits, masks, dec_out = self.heads(output, mask_features)
+            logits, masks, dec_out = self.heads(output, mask_features, af)
             all_logits.append(logits)
             all_masks.append(masks)
             attn_bias = attn_bias_from_mask_logits(masks, size_list[(i + 1) % self.nlvl])
@@ -246,13 +276,17 @@ class MaskedTransformerDecoder(nn.Module):
         masks_all = torch.stack([to_video_masks(m) for m in all_masks])
         logits_all = torch.stack(
             [lg.reshape(bs, t, *lg.shape[1:]) for lg in all_logits]
-        )                                                    # (L+1, B, T, Q, D)
-        return {
+        )                                 # (L+1, B, T, Q, D) or (L+1, B, T, nH, Q, h, w)
+        out = {
             "pred_masks_all": masks_all,
-            "pred_logits_all": logits_all,
             # per-frame query embeddings for tracking: decoder_norm(output)
             # of the last prediction
             "pred_embeds": dec_out.reshape(bs, t, self.num_queries, self.hidden_dim),
-            "pred_logits": logits_all[-1],
             "pred_masks": masks_all[-1],
         }
+        if af is None:
+            out.update(pred_logits_all=logits_all, pred_logits=logits_all[-1])
+        else:
+            out.update(class_attn_biases_all=logits_all, class_attn_biases=logits_all[-1],
+                       attn_feats=af.permute(0, 1, 3, 4, 2))    # (N, nH, h, w, C), as JAX's
+        return out

@@ -1,10 +1,10 @@
 """Model assembly, the train step and the windowed video eval entry point.
 
-Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online): ``build_model``
-(``:25``), the loss closure ``make_loss_fn`` with its AMP rule (``:70-174``),
-the train step of ``openvis_tpu/parallel/train_step.py`` (``build_train_step``,
-one process or one of several over ``torch.distributed``)
-and ``make_eval_fn`` (``:177-203``).
+Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online) and SANOnline:
+``build_model`` (``:25``), the loss closure ``make_loss_fn`` with its AMP rule
+(``:70-174``), the train step of ``openvis_tpu/parallel/train_step.py``
+(``build_train_step``, one process or one of several over
+``torch.distributed``) and ``make_eval_fn`` (``:177-203``).
 
 The entry points run on the card: ``device`` defaults to ``"cuda"``, and
 without a CUDA device they raise unless the caller passes ``device="cpu"``
@@ -13,6 +13,7 @@ without a CUDA device they raise unless the caller passes ``device="cpu"``
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -20,6 +21,7 @@ from torch import nn
 
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
+from openvis_tpu_torch.models.meta.san import SANModel, san_loss
 from openvis_tpu_torch.models.meta.simple_baseline import (
     SimpleBaselineModel,
     eval_scores,
@@ -51,17 +53,33 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def build_model(cfg: Config, device="cuda") -> SimpleBaselineModel:
-    """The module for ``cfg`` on ``device`` with zero-filled parameters: load
+# the ported architectures: their module and their loss (JAX ``train.py:25-60``, ``:70-113``)
+_ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
+          "SimpleBaselineOnline": (SimpleBaselineModel, simple_baseline_loss),
+          "SANOnline": (SANModel, san_loss)}
+
+
+def build_model(cfg: Config, device="cuda") -> nn.Module:
+    """The module for ``cfg`` on ``device`` with uninitialised parameters: load
     them with ``convert.load_flax_params`` or draw them with
     ``convert.init_params``."""
     device = resolve_device(device)
     name = cfg.model.meta_architecture
-    if name in ("SimpleBaseline", "SimpleBaselineOnline"):
-        return SimpleBaselineModel(cfg.model).to(device)
+    if name in _ARCHS:
+        return _ARCHS[name][0](cfg.model).to(device)
+    item = " item 8" if name == "SAN" else ""  # offline SAN: the video decoder
     raise NotImplementedError(
-        f"meta architecture {name!r} is not ported yet (ROADMAP.md, queue 1)"
+        f"meta architecture {name!r} is not ported yet (ROADMAP.md, queue 1{item})"
     )
+
+
+def eval_model(model: nn.Module) -> nn.Module:
+    """``model`` as evaluation runs it: SAN without the aux layers' CLIP
+    logits (a shallow copy sharing the parameters; JAX ``engine.py:315-317``)."""
+    if getattr(model, "supervise_aux_logits", False):
+        model = copy.copy(model)
+        model.supervise_aux_logits = False
+    return model
 
 
 def is_online(cfg: Config) -> bool:
@@ -74,7 +92,7 @@ def _keeps_f32(path) -> bool:
     return any("norm" in c.lower() or c.lower().startswith("ln") for c in path)
 
 
-def make_loss_fn(cfg: Config, model: SimpleBaselineModel, num_text_classes: int,
+def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
                  draw_points=sorted_uniform_points) -> Callable:
     """Returns loss_fn(params, batch, generator) -> (total, metrics).
 
@@ -82,12 +100,13 @@ def make_loss_fn(cfg: Config, model: SimpleBaselineModel, num_text_classes: int,
     ``batch`` holds ``pixels`` (B, T, H, W, 3), ``targets`` (ClipTargets)
     and ``text_feats`` (K, D).  Under ``solver.amp`` the frames run in bf16
     and every f32 parameter is cast to bf16 at use, except the norms'; the
-    cast is differentiable, so the gradients come back f32.  Outputs return
-    to f32, except the mask-logit stack, which stays bf16 and is sampled
-    under the f32 policy."""
+    cast is differentiable, so the gradients come back f32.  Output tensors
+    return to f32, except the mask-logit stack, which stays bf16 and is
+    sampled under the f32 policy; other outputs pass through."""
     name = cfg.model.meta_architecture
-    if name not in ("SimpleBaseline", "SimpleBaselineOnline"):
+    if name not in _ARCHS:
         raise NotImplementedError(f"the {name!r} loss is not ported yet (ROADMAP.md)")
+    compute_losses = _ARCHS[name][1]
     online = is_online(cfg)
     amp = cfg.solver.amp
     to_bf16 = {n for n, p in model.named_parameters()
@@ -104,17 +123,18 @@ def make_loss_fn(cfg: Config, model: SimpleBaselineModel, num_text_classes: int,
             apply = {n: (p.to(torch.bfloat16) if n in to_bf16 else p)
                      for n, p in params.items()}
         out = torch.func.functional_call(model, apply, (frames, t, batch["text_feats"]))
-        out = {k: (v if (amp and "masks_all" in k) else v.float())
+        out = {k: (v.float() if isinstance(v, torch.Tensor)
+                   and not (amp and "masks_all" in k) else v)
                for k, v in out.items()}
-        losses = simple_baseline_loss(generator, out, batch["targets"], cfg.model,
-                                      num_text_classes, online, draw_points)
+        losses = compute_losses(generator, out, batch["targets"], cfg.model,
+                                num_text_classes, online, draw_points)
         metrics = {k: losses[k].sum() for k in ("loss_ce", "loss_mask", "loss_dice")}
         return losses["total"], metrics
 
     return loss_fn
 
 
-def build_train_step(cfg: Config, model: SimpleBaselineModel, num_text_classes: int,
+def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
                      device="cuda", draw_points=sorted_uniform_points) -> TrainStep:
     """Returns step(batch, generator=None) -> metrics (``total_loss``,
     ``loss_ce``, ``loss_mask``, ``loss_dice``, ``grad_norm``).
@@ -139,12 +159,13 @@ def build_train_step(cfg: Config, model: SimpleBaselineModel, num_text_classes: 
     return TrainStep(loss_fn, TrainState(model, opt), cfg.seed)
 
 
-def make_eval_fn(cfg: Config, model: SimpleBaselineModel) -> Callable:
+def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
     """Returns f(frames (T, H, W, 3), text_feats (K, D)) -> top-k dict for one
     video window (B = 1).  Runs on the model's device; the inputs are moved
     there.  Online (frame-decoder) eval: ``build_model`` refuses the video
     decoder."""
     topk = cfg.model.test.topk_per_video
+    model = eval_model(model)
 
     @torch.inference_mode()
     def eval_fn(frames: torch.Tensor, text_feats: torch.Tensor) -> Dict[str, torch.Tensor]:

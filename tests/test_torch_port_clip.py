@@ -25,7 +25,7 @@ from openvis_tpu.models.clip import prompts as jax_prompts
 from openvis_tpu.models.clip import tokenizer as jax_tokenizer
 from openvis_tpu.models.clip.text_bank import TextEmbeddingBank as JaxBank
 from openvis_tpu_torch import weights
-from openvis_tpu_torch.convert import params_from_flax
+from openvis_tpu_torch.convert import init_params, params_from_flax
 from openvis_tpu_torch.models.clip import model, prompts, synthetic, tokenizer
 from openvis_tpu_torch.models.clip.build import build_clip_params, load_clip_state
 from openvis_tpu_torch.models.clip.text_bank import TextEmbeddingBank
@@ -239,9 +239,19 @@ def test_unported_clip_inputs_raise_their_roadmap_item(files):
         weights.convert_clip({"visual.layer1.0.conv1.weight": np.zeros(1)})
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         model.vision_tower("RN50")
-    block = model.ResidualAttentionBlock(64, 4)
-    x = torch.zeros(1, 3, 64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        block(x, attn_bias=torch.zeros(1, 4, 3, 3))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        model.vision_tower("test-tiny").run_blocks(x, 0, 1, sos_q=1)
+    # SAN's biased attention is ported (queue 1 item 5; the parity with JAX is
+    # tests/test_torch_port_san.py's): the same calls run and give the
+    # dense-bias result.  A zero bias is no bias; the sos-split form is the
+    # dense bias it stands for (-100 on the context rows' sos column).
+    vis = init_params(model.vision_tower("test-tiny"), seed=0)
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, 3, 64).astype(np.float32))
+    sos_bias = torch.from_numpy(np.random.RandomState(5).randn(1, 4, 1, 2).astype(np.float32))
+    dense = torch.zeros(1, 4, 3, 3)
+    dense[:, :, 1:, 0] = -100.0
+    dense[:, :, :1, 1:] = sos_bias
+    with torch.no_grad():
+        block = vis.blocks[0]
+        np.testing.assert_array_equal(block(x, attn_bias=torch.zeros(1, 4, 3, 3)), block(x))
+        split, _ = vis.run_blocks(x, 0, 1, attn_bias=[sos_bias], sos_q=1)
+        ref, _ = vis.run_blocks(x, 0, 1, attn_bias=[dense])
+    np.testing.assert_allclose(split, ref, rtol=0, atol=ATOL)

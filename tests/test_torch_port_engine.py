@@ -192,6 +192,12 @@ def test_engine_refuses_what_is_not_ported(setup):
         cfg.model, meta_architecture="BriVIS"))
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         engine.evaluate_dataset(brivis, pm, DATASET, text, device="cpu")
+    # SANOnline is ported (tests/test_torch_port_san_engine.py); offline SAN
+    # needs the video decoder
+    offline_san = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, meta_architecture="SAN"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        engine.evaluate_dataset(offline_san, pm, DATASET, text, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         engine.make_evaluator(catalog.get("burst_val"))
 

@@ -18,8 +18,9 @@ on the CPU (``--device cpu``) or on N processes over ``torch.distributed``
   * only rank 0 writes checkpoints and metrics; the other processes wait at a
     barrier.
 
-The text bank (``build_text_bank``) and, for the SimpleBaseline CLIP ensemble,
-the frozen CLIP visual tower come from ``model.clip_adapter.weights`` (a local
+The text bank (``build_text_bank``), SAN's frozen tower
+(``model.clip_adapter.visual``) and, for the SimpleBaseline CLIP ensemble, the
+frozen CLIP visual tower come from ``model.clip_adapter.weights`` (a local
 OpenAI CLIP ``.pt``: a JIT archive or a state dict) and ``bpe_vocab`` (a local
 ``bpe_simple_vocab_16e6.txt.gz``).
 
@@ -91,14 +92,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_text_bank(cfg, device) -> TextEmbeddingBank:
-    """The prompt-ensembled text bank of ``clip_adapter`` on ``device`` (JAX
-    ``train_net.py:64-87``)."""
+def read_clip(cfg):
+    """The CLIP checkpoint ``model.clip_adapter.weights`` as the tree
+    ``{visual, text, logit_scale}``."""
     ca = cfg.model.clip_adapter
     if not ca.weights:
         raise SystemExit("model.clip_adapter.weights must point to a CLIP checkpoint (.pt: "
                          "an OpenAI JIT archive or a state dict)")
-    text = build_clip_params(ca.weights)["text"]
+    return build_clip_params(ca.weights)
+
+
+def build_text_bank(cfg, device, clip_tree=None) -> TextEmbeddingBank:
+    """The prompt-ensembled text bank of ``clip_adapter`` on ``device`` (JAX
+    ``train_net.py:64-87``), from ``clip_tree`` (``read_clip``'s) or the
+    checkpoint."""
+    ca = cfg.model.clip_adapter
+    text = (clip_tree or read_clip(cfg))["text"]
     vocab = text["token_embedding"]["embedding"].shape[0]
     enc = text_tower(ca.clip_model_name, vocab, text["positional_embedding"].shape[0])
     enc.load_state_dict(params_from_flax(text), strict=True)
@@ -128,6 +137,13 @@ def pretrained_init(cfg, model) -> None:
     elif w and os.path.exists(w):
         _load_into(model, segmenter_state(w, cfg), "segmenter")
         logger.info("loaded pretrained segmenter init from %s", w)
+
+
+def load_clip_visual(model, clip_tree) -> None:
+    """SAN's frozen tower ``clip_adapter.visual`` from the CLIP checkpoint (JAX
+    ``train_net.py:213-218``)."""
+    model.clip_adapter.visual.load_state_dict(params_from_flax(clip_tree["visual"]), strict=True)
+    logger.info("loaded the CLIP visual weights into clip_adapter.visual")
 
 
 def evaluate(args, cfg, model, bank, device, ckpt_dir) -> None:
@@ -230,9 +246,13 @@ def run(args, device) -> None:
     ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
     # class names of the training taxonomy (simplebsl.py:50-57)
     class_names = list(catalog.get(cfg.datasets.train[0]).thing_classes)
-    bank = build_text_bank(cfg, device)
+    clip_tree = read_clip(cfg)
+    bank = build_text_bank(cfg, device, clip_tree)
     model = init_params(build_model(cfg, device), seed=cfg.seed)
     pretrained_init(cfg, model)
+    if hasattr(model, "clip_adapter"):
+        load_clip_visual(model, clip_tree)
+    del clip_tree
     if args.eval_only:
         evaluate(args, cfg, model, bank, device, ckpt_dir)
     else:
