@@ -98,12 +98,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      over phase 10's dataset, K4 on its tracking costs against
      ``hungarian_plain``; the CLI as users train it (16 clips of 2 frames, 3
      steps, a checkpoint), then ``--eval-only``
+  14. BriVIS with its recipe's model
+     (``configs/openvoc_ytvis_coco/brivis_R50_bs16_6000st.yaml``: phase 13's
+     model frozen, a temporal resampler of 6 layers): three 10x384x640 bf16
+     windows of bench.py's staged path (frame stack, tracking, resampler,
+     heads with the biased CLIP post-encode, top-k) with their split and
+     TFLOP/s against FLOPS.json's ``brivis_r50_inference``; an f32 window at
+     192x320 on the card against the CPU; the train step at 1x3x480x864 (bf16
+     AMP) under each matcher source, K1/K4/K5/K6 on its first step's inputs
+     against the plain versions, the frozen stage 1 bit-equal and without
+     AdamW state, the resampler moved; its f32 loss and gradients at
+     1x3x192x320, card against CPU; the engine over phase 10's dataset with
+     its split, K4 on its tracking costs against ``hungarian_plain``, and the
+     decoupled and raw resamplers on one f32 video each, card against CPU;
+     the CLI's stage 2 from phase 13's SAN checkpoint (16 clips of 3 frames,
+     2 steps across the matcher switch, a checkpoint whose grafted subtrees
+     equal stage 1's), then ``--eval-only``
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
 engine's whole-video run of phase 10, the CLI's training and eval runs of
-phase 11, the ensemble's run of phase 12 and SAN's window, train step,
-engine and CLI runs of phase 13), its error
+phase 11, the ensemble's run of phase 12, SAN's window, train step,
+engine and CLI runs of phase 13 and BriVIS's of phase 14), its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -151,7 +167,9 @@ from openvis_tpu_torch.models import clip_adapter
 from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
 from openvis_tpu_torch.models.clip import synthetic as clip_synthetic
 from openvis_tpu_torch.models.clip.model import model_shape
+from openvis_tpu_torch.models.meta import brivis as brivis_meta
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule
+from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.ops import cuda_build, hungarian_cuda, msda_cuda, point_sample_cuda
 from openvis_tpu_torch.ops.hungarian import hungarian_plain
 from openvis_tpu_torch.ops.msda import ms_deform_attn_bwd_plain, ms_deform_attn_plain
@@ -346,6 +364,22 @@ SAN_CLI_STEPS = 3
 SAN_TRAINED = ("clip_adapter.bg_embed", "clip_adapter.logit_scale",
                "clip_adapter.attn_proj0.weight",
                "segmenter.predictor.heads.attn_embed.layer0.weight")
+# phase 14: BriVIS with its recipe's model (SAN's, its segmenter and
+# clip_adapter frozen, and a temporal resampler of 6 layers with k5/k3
+# convolutions) on clips of 3 frames (bench.py:147-148); the train step runs
+# BRIVIS_TRAIN_STEPS steps under each matcher source, the CLI BRIVIS_CLI_STEPS
+# steps from phase 13's SAN checkpoint, its matcher switching at half of them
+BRIVIS_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "brivis_R50_bs16_6000st.yaml")
+BRIVIS_T = 3
+BRIVIS_TRAIN_STEPS = 2
+BRIVIS_CLI_STEPS = 2
+# the engine's other resamplers, each one f32 video card against CPU
+BRIVIS_ENGINE_CHECKS = ("decoupled", "raw")
+# parameters BriVIS trains, each of which must move in a step (segmenter.*
+# and clip_adapter.* must not), and whose gradients phase 14.4 holds
+BRIVIS_TRAINED = ("resampler.short0_conv1.weight", "resampler.long0.q_proj.weight",
+                  "resampler.mask_embed.layer2.weight", "resampler.attn_embed.layer0.weight",
+                  "brownian_proj.weight")
 
 
 def emit(obj) -> None:
@@ -1177,10 +1211,9 @@ def _hold_window_to_plain(phase, cfg, cpu_model, h, w):
         raise AssertionError(f"{phase}: the card's window skipped a kernel: {launches}")
 
 
-def _train_batch(rng, h, w, n, device):
-    """bench.py's synthetic train batch: 1 clip of TRAIN_T frames, n targets
+def _train_batch(rng, h, w, n, device, t=TRAIN_T):
+    """bench.py's synthetic train batch: 1 clip of ``t`` frames, n targets
     with 10 % foreground masks, all valid."""
-    t = TRAIN_T
     pixels = torch.from_numpy(rng.randn(1, t, h, w, 3).astype(np.float32))
     targets = ClipTargets(
         labels=torch.from_numpy(rng.randint(0, K_CLASSES, (1, n))),
@@ -1192,13 +1225,25 @@ def _train_batch(rng, h, w, n, device):
             "text_feats": torch.from_numpy(_text(rng)).to(device)}
 
 
-def _train_launches(cfg, h, w, steps):
+def _train_launches(cfg, h, w, steps, t=TRAIN_T):
     """K1-K6 launches of ``steps`` train steps on an (h, w) canvas: per
     decoder layer K5 samples the masks for the matcher and for the two loss
     point sets (and, at most KERNEL_MAX_HW pixels, the targets at the same
-    three), K6 takes the two loss samplings' gradients; K4 once a step."""
-    layers = cfg.model.transformer_decoder.dec_layers + 1
+    three), K6 takes the two loss samplings' gradients; K4 once a step.
+    BriVIS (clips of ``t`` frames, stacked into one tall frame): the frozen
+    encoder has no backward (no K2/K3); K4 tracks and matches (twice a
+    step); one matching, on one layer, and the two loss samplings of each of
+    the image layer and the resampler's L+1 layers; K6 for the resampler's
+    layers only (the image layer is frozen)."""
     enc = cfg.model.pixel_decoder.transformer_enc_layers
+    if cfg.model.meta_architecture == "BriVIS":
+        layers = cfg.model.resampler.num_layers + 1
+        targets = 2 if t * h * w <= KERNEL_MAX_HW else 1
+        per_step = {"msda_fwd": enc, "msda_dcoord": 0, "msda_dvalue": 0, "hungarian": 2,
+                    "point_sample_fwd": (1 + 2 * (layers + 1)) * targets,
+                    "point_sample_dvalue": 2 * layers}
+        return {k: v * steps for k, v in per_step.items()}
+    layers = cfg.model.transformer_decoder.dec_layers + 1
     target_samplings = 3 if h * w <= KERNEL_MAX_HW else 0
     per_step = {"msda_fwd": enc, "msda_dcoord": enc, "msda_dvalue": enc, "hungarian": 1,
                 "point_sample_fwd": (3 + target_samplings) * layers,
@@ -1309,10 +1354,11 @@ def phase_train_vs_plain():
                          TRAIN_CHECK_PARAMS)
 
 
-def _hold_train_to_plain(phase, cfg, cpu_model, check_params):
+def _hold_train_to_plain(phase, cfg, cpu_model, check_params, t=TRAIN_T):
     """Phase 9's comparison of ``cpu_model`` (f32) on the CPU and a copy on
     the card, with the gradients of ``check_params`` held element for
-    element."""
+    element, on a clip of ``t`` frames; every kernel of the path (BriVIS's
+    has no K2/K3) must launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the CPU side's oneDNN f32 convolution weight-gradient differs from a
@@ -1321,7 +1367,7 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params):
     torch.backends.mkldnn.enabled = False
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
     batch = _train_batch(np.random.RandomState(SEED + 2), CHECK_TRAIN_H, CHECK_TRAIN_W,
-                         CHECK_TRAIN_N, "cpu")
+                         CHECK_TRAIN_N, "cpu", t)
     gpu_batch = {"pixels": batch["pixels"].to(DEVICE), "targets": batch["targets"].to(DEVICE),
                  "text_feats": batch["text_feats"].to(DEVICE)}
     ref_rec, got_rec = [], []
@@ -1349,7 +1395,7 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params):
             gap = abs(c[rows, a].sum() - c[rows, b].sum()).item()
             cost_gap = max(cost_gap, gap / max(abs(c[rows, b].sum().item()), 1e-30))
     emit({"phase": phase, "dtype": "float32", "tf32": False,
-          "batch": [1, TRAIN_T, CHECK_TRAIN_H, CHECK_TRAIN_W], "targets": CHECK_TRAIN_N,
+          "batch": [1, t, CHECK_TRAIN_H, CHECK_TRAIN_W], "targets": CHECK_TRAIN_N,
           "losses_kernel_plain": losses, "loss_rel_err": loss_rel,
           "grad_norm_kernel_plain": [got_norm, ref_norm],
           "grad_norm_rel_err": abs(got_norm - ref_norm) / ref_norm,
@@ -1365,7 +1411,8 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params):
             and all(v <= TRAIN_GRAD_REL_TO_MAX for v in grad_rel.values())
             and cost_gap <= HUNGARIAN_RTOL):
         raise AssertionError("the kernel train step disagrees with the plain train step")
-    if min(launches.values()) == 0:
+    path = _train_launches(cfg, CHECK_TRAIN_H, CHECK_TRAIN_W, 1, t)
+    if any(launches[k] == 0 for k, n in path.items() if n):
         raise AssertionError(f"the card's train step skipped a kernel: {launches}")
 
 
@@ -2100,28 +2147,40 @@ def _hold_cli_recorded(msda_rec: MsdaRecorder, k4_rec: HungarianRecorder,
     K2 and K3 on these inputs."""
     k1_ms = _hold_k1("cli_train", msda_rec)
     k2_ms, k3_ms, k3_dev = _hold_k2_k3("cli_train", msda_rec)
+    _hold_k4_k5_k6("cli_train", k4_rec, sampler_rec, k4_calls=1)
+    return {"msda_fwd": {"recorded_cli_train_ms": k1_ms},
+            "msda_dcoord": {"recorded_cli_train_ms": k2_ms},
+            "msda_dvalue": {"recorded_cli_train_ms": k3_ms,
+                            "recorded_cli_train_device_ms": k3_dev}}
+
+
+def _hold_k4_k5_k6(path: str, k4_rec: HungarianRecorder, sampler_rec: SamplerInputs,
+                   k4_calls: int) -> None:
+    """K4 on every cost recorded on ``path`` (``k4_calls`` calls) against
+    ``hungarian_plain``, and K5 and K6 on their first call of each shape
+    against the plain sampler, with phases 3 and 5's tolerances."""
     plain = _plain_assignments(k4_rec.costs)
     cols = [c for batch_cols in k4_rec.cols for c in batch_cols]
     differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols)) if not torch.equal(ref, got)]
     steps = [n for _, n in plain]
-    emit({"phase": "k4_recorded_inputs", "path": "cli_train",
+    emit({"phase": "k4_recorded_inputs", "path": path,
           "shapes": [list(c.shape) for c in k4_rec.costs], "equal_to_plain": not differ,
           "problems_differing": differ,
           "steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)}})
-    if differ or len(k4_rec.costs) != 1:
-        raise AssertionError(f"K4 on the CLI step's costs differs from hungarian_plain: {differ}")
+    if differ or len(k4_rec.costs) != k4_calls:
+        raise AssertionError(f"K4 on the {path} costs differs from hungarian_plain: {differ}")
     for shape, (maps, coords) in sorted(sampler_rec.fwd.items()):
         maps, coords = maps.to(DEVICE), coords.to(DEVICE)
         got = point_sample_cuda.point_sample_fwd_cuda(maps, coords)
         ref = sample_maps_shared_plain(maps, coords, f32_policy=True)
         torch.cuda.synchronize()
         ok, err, rel = _check_close(got, ref, SAMPLER_REL_TO_MAX, SAMPLER_RTOL)
-        emit({"phase": "k5_recorded_inputs", "path": "cli_train", "maps_points": shape,
+        emit({"phase": "k5_recorded_inputs", "path": path, "maps_points": shape,
               "dtype": str(maps.dtype).replace("torch.", ""), "within_tol": ok,
               "max_abs_err": err, "max_err_rel_to_max": rel,
               "tol": {"rel_to_max": SAMPLER_REL_TO_MAX, "rtol": SAMPLER_RTOL}})
         if not ok:
-            raise AssertionError(f"K5 disagrees with the plain sampler on the CLI step's {shape}")
+            raise AssertionError(f"K5 disagrees with the plain sampler on the {path} {shape}")
     for shape, (coords, grad, map_shape, dtype) in sorted(sampler_rec.dvalue.items()):
         coords, grad = coords.to(DEVICE), grad.to(DEVICE)
         got = point_sample_cuda.point_sample_dvalue_cuda(coords, grad, map_shape, dtype)
@@ -2129,18 +2188,14 @@ def _hold_cli_recorded(msda_rec: MsdaRecorder, k4_rec: HungarianRecorder,
                                        coords, grad)
         torch.cuda.synchronize()
         ok, err, rel = _check_close(got, ref, BWD_REL_TO_MAX, BWD_RTOL[dtype])
-        emit({"phase": "k6_recorded_inputs", "path": "cli_train", "maps_points": shape,
+        emit({"phase": "k6_recorded_inputs", "path": path, "maps_points": shape,
               "dtype": str(dtype).replace("torch.", ""), "within_tol": ok,
               "max_abs_err": err, "max_err_rel_to_max": rel,
               "tol": {"rel_to_max": BWD_REL_TO_MAX, "rtol": BWD_RTOL[dtype]}})
         if not ok:
-            raise AssertionError(f"K6 disagrees with the plain sampler on the CLI step's {shape}")
+            raise AssertionError(f"K6 disagrees with the plain sampler on the {path} {shape}")
     if not sampler_rec.fwd or not sampler_rec.dvalue:
-        raise AssertionError("the CLI step launched no K5 or no K6")
-    return {"msda_fwd": {"recorded_cli_train_ms": k1_ms},
-            "msda_dcoord": {"recorded_cli_train_ms": k2_ms},
-            "msda_dvalue": {"recorded_cli_train_ms": k3_ms,
-                            "recorded_cli_train_device_ms": k3_dev}}
+        raise AssertionError(f"the {path} step launched no K5 or no K6")
 
 
 def _metrics(step, batch):
@@ -2574,10 +2629,11 @@ def phase_san_engine(card, clip, tree):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_san_cli(card, clip):
+def phase_san_cli(card, clip, keep_checkpoints=None):
     """13.6: the CLI with the SAN recipe as users train it (16 clips of 2
     frames a step), 3 steps and a checkpoint, then ``--eval-only``; returns
-    the launches of the two runs."""
+    the launches of the two runs.  ``keep_checkpoints``: a directory the
+    run's checkpoint directory moves to (phase 14's stage 1)."""
     import train_net_torch as cli
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2649,16 +2705,19 @@ def phase_san_cli(card, clip):
             raise AssertionError(f"the SAN CLI's eval wrote {metrics}")
         if launches2 != expected2:
             raise AssertionError(f"SAN CLI eval launches {launches2} != {expected2}")
+        if keep_checkpoints is not None:
+            shutil.move(ckpt_dir, keep_checkpoints)
         return launches, launches2
     finally:
         cli.save_checkpoint = orig
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_san(card, clip):
+def phase_san(card, clip, keep_checkpoints=None):
     """Phase 13: SANOnline with the recipe's model (the side-adapter CLIP
     split over a random ViT-B/16 in OpenAI's layout from ``clip``); returns
-    its paths' launch counts by name."""
+    its paths' launch counts by name.  ``keep_checkpoints``: where the CLI
+    run's checkpoint directory goes (``phase_san_cli``)."""
     import train_net_torch as cli
 
     cfg = _san_config(clip)
@@ -2669,7 +2728,449 @@ def phase_san(card, clip):
     phase_san_train_vs_plain(cfg, tree)
     launches["san_engine"] = phase_san_engine(card, clip, tree)
     del tree
-    launches["san_cli_train"], launches["san_cli_eval"] = phase_san_cli(card, clip)
+    launches["san_cli_train"], launches["san_cli_eval"] = phase_san_cli(card, clip,
+                                                                       keep_checkpoints)
+    return launches
+
+
+class BrivisSpans:
+    """CUDA events around BriVIS's stages in one run (class methods of the
+    model, so that the engine's copies and ``torch.func.functional_call`` are
+    timed too): the frozen frame stack, the resampler over the whole video
+    (``resample``, or the raw resampler's halves), the heads with the biased
+    CLIP post-encode (``predict_window``), and tracking (``track_by_embeds``
+    of the module that calls it)."""
+
+    STAGES = {"frame_stack": ("frame_stack",), "resample": ("resample", "raw_temporal",
+                                                            "raw_frame", "raw_finalize"),
+              "heads": ("predict_window",)}
+
+    def __init__(self, *tracking_modules):
+        self._tracking = tracking_modules
+
+    def __enter__(self):
+        self.events = {k: [] for k in (*self.STAGES, "tracking")}
+        self._orig = {}
+
+        def around(key, fn):
+            def timed(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return timed
+
+        for key, names in self.STAGES.items():
+            for name in names:
+                self._orig[(brivis_meta.BriVISModel, name)] = getattr(brivis_meta.BriVISModel, name)
+                setattr(brivis_meta.BriVISModel, name,
+                        around(key, getattr(brivis_meta.BriVISModel, name)))
+        for mod in self._tracking:
+            self._orig[(mod, "track_by_embeds")] = mod.track_by_embeds
+            mod.track_by_embeds = around("tracking", mod.track_by_embeds)
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in self._orig.items():
+            setattr(obj, name, fn)
+
+    def split_ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in ev) for k, ev in self.events.items()}
+
+
+def _brivis_config(clip, *overrides):
+    """The BriVIS recipe with the CLIP files ``clip`` (weights, bpe) and
+    ``overrides``; its stage-1 ``model.weights`` (a flax .msgpack) cleared."""
+    return load_config(BRIVIS_CONFIG, ["model.weights=", f"model.clip_adapter.weights={clip[0]}",
+                                       f"model.clip_adapter.bpe_vocab={clip[1]}", *overrides])
+
+
+def _brivis_window(model, frames, text, topk):
+    """bench.py's ``make_brivis_eval`` staged path over one window: the frozen
+    frame stack, tracking, the resampler, the last layer's heads with the
+    biased CLIP post-encode, the frame-mean scores' top-k."""
+    out = model.frame_stack(frames, frames.shape[0])
+    idx = brivis_meta.track_by_embeds(out["pred_embeds"])
+    final = model.resample(brivis_meta.apply_track_indices(out["pred_embeds"], idx))
+    masks, logits = model.predict_window(final[0], out["mask_feats"], out["attn_feats"],
+                                         out["bk_tokens"], text)
+    probs = torch.softmax(logits.float().mean(0), dim=-1)[:, :-1]
+    return inference_video_topk(probs, masks.transpose(0, 1), topk)
+
+
+def phase_brivis_window(card, cfg, tree):
+    """14.1: the BriVIS eval window at full width, bf16, three windows of
+    bench.py's staged path, with its split and TFLOP/s against FLOPS.json's
+    count; returns the launches."""
+    model = train.eval_model(_san_model(cfg, tree, DEVICE, SEED).to(dtype=torch.bfloat16).eval())
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    windows = [torch.from_numpy(rng.randn(t, h, w, 3).astype(np.float32)).to(
+        DEVICE, torch.bfloat16) for _ in range(NUM_WINDOWS)]
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    topk = cfg.model.test.topk_per_video
+    with torch.inference_mode():
+        _brivis_window(model, windows[0], text, topk)  # warm-up: cuDNN autotuning, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(NUM_WINDOWS + 1)]
+        reset_counts()
+        marks[0].record()
+        outs = []
+        for x, mark in zip(windows, marks[1:]):
+            outs.append(_brivis_window(model, x, text, topk))
+            mark.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        each_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        ms = sum(each_ms) / NUM_WINDOWS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the split, from a second pass with events around each stage; what
+        # falls outside the stages (top-k, the gaps between them) is its rest
+        with BrivisSpans(brivis_meta) as spans:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for x in windows:
+                _brivis_window(model, x, text, topk)
+            end.record()
+        split = {k: v / NUM_WINDOWS for k, v in spans.split_ms().items()}
+    split_pass_ms = start.elapsed_time(end) / NUM_WINDOWS
+    split["topk_and_other"] = split_pass_ms - sum(split.values())
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"BriVIS window {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS,
+                "hungarian": NUM_WINDOWS}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "FLOPS.json")) as f:
+        flop = json.load(f)["brivis_r50_inference"]["flops"]
+    emit({"phase": "brivis_window_full_width", "config": BRIVIS_CONFIG, "dtype": "bfloat16",
+          "resampler": [cfg.model.resampler.name, cfg.model.resampler.num_layers],
+          "windows": NUM_WINDOWS, "frames_per_window": t, "frame_hw": [h, w],
+          "ms_per_window": ms, "ms_each_window": each_ms, "frames_per_s": t / (ms / 1e3),
+          "split_pass_ms_per_window": split_pass_ms, "split_ms_per_window": split,
+          "peak_mem_gib": peak, "flops_json_tflop_per_window": flop / 1e12,
+          "tflop_per_s": flop / (ms / 1e3) / 1e12,
+          "bf16_peak_share": flop / (ms / 1e3) / BF16_FLOPS,
+          "launches": launches, "expected_launches": expected, "card": card})
+    if launches != expected:
+        raise AssertionError(f"BriVIS window launches {launches} != {expected}")
+    return launches
+
+
+def phase_brivis_vs_plain(cfg, tree):
+    """14.2: one f32 BriVIS window (``make_eval_fn``: the model's forward) on
+    the card (kernels) against the CPU (plain), TF32 off, at 192x320."""
+    _hold_window_to_plain("brivis_kernels_vs_plain", cfg,
+                          _san_model(cfg, tree, "cpu", SEED + 1), CHECK_TRAIN_H, CHECK_TRAIN_W)
+
+
+def _subtrees(model, prefixes=("segmenter.", "clip_adapter.")):
+    return {n: p for n, p in model.named_parameters() if n.startswith(prefixes)}
+
+
+def phase_brivis_train(card, cfg, tree):
+    """14.3: the BriVIS train step at full width (1x3x480x864, N=40, bf16 AMP,
+    f32 masters) under each matcher source, with K1, K4, K5 and K6 held to
+    their plain versions on the inputs of the first step; the frozen stage 1
+    bit-equal after it, the resampler and brownian_proj moved.  Returns the
+    launches of the timed steps of both sources."""
+    model = _san_model(cfg, tree, DEVICE, SEED)
+    frozen = {n: p.detach().clone() for n, p in _subtrees(model).items()}
+    trained = {n: p for n, p in model.named_parameters() if n in BRIVIS_TRAINED}
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE,
+                         BRIVIS_T)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with MsdaRecorder() as msda_rec, HungarianRecorder() as k4_rec, SamplerInputs() as s_rec:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator; its inputs recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches = {}, collections.Counter()
+    for image_matcher in (True, False):
+        train.use_brivis_matcher(step, cfg, K_CLASSES, image_matcher)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(BRIVIS_TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches.update(read_counts())
+        runs["image_matcher" if image_matcher else "resampler_matcher"] = {
+            "ms_per_step": start.elapsed_time(end) / BRIVIS_TRAIN_STEPS,
+            "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
+    launches = dict(launches)
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, 2 * BRIVIS_TRAIN_STEPS, BRIVIS_T)
+    frozen_fixed = all(torch.equal(p, frozen[n]) for n, p in _subtrees(model).items())
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in trained.items()}
+    no_state = [n for n in frozen if n in step.state.opt.mu]
+    emit({"phase": "brivis_train_full_width", "config": BRIVIS_CONFIG,
+          "dtype": "bf16 AMP, f32 masters", "batch": [1, BRIVIS_T, TRAIN_H, TRAIN_W],
+          "targets": TRAIN_N, "points": cfg.model.criterion.train_num_points,
+          "steps_per_matcher": BRIVIS_TRAIN_STEPS, "runs": runs,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches, "expected_launches": expected,
+          "frozen_params": sum(p.numel() for p in frozen.values()),
+          "frozen_bit_equal": frozen_fixed, "frozen_with_adamw_state": len(no_state),
+          "trained_moved": moved, "card": card})
+    del frozen
+    if launches != expected:
+        raise AssertionError(f"BriVIS train-step launches {launches} != {expected}")
+    if not all(np.isfinite(v) for r in runs.values() for m in r["metrics"] for v in m.values()):
+        raise AssertionError("a BriVIS train-step loss or grad norm is not finite")
+    if not frozen_fixed or no_state or not all(moved.values()) or len(moved) != len(BRIVIS_TRAINED):
+        raise AssertionError(f"the frozen stage 1 changed or a trained parameter did not: {moved}")
+    _hold_k1("brivis_train", msda_rec)
+    _hold_k4_k5_k6("brivis_train", k4_rec, s_rec, k4_calls=2)
+    return launches
+
+
+def phase_brivis_train_vs_plain(cfg, tree):
+    """14.4: one f32 BriVIS train-step loss and gradient, card against CPU, on
+    a clip of 3 frames at 192x320."""
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    _hold_train_to_plain("brivis_train_kernels_vs_plain", f32,
+                         _san_model(f32, tree, "cpu", SEED + 2), BRIVIS_TRAINED, BRIVIS_T)
+
+
+def _brivis_engine_vs_plain(root, cats, clip, tree, resampler):
+    """One short f32 video through the engine with a BriVIS of ``resampler``
+    on the card (kernels) and on the CPU (plain), phase 10's check video and
+    bounds; returns the card's launches."""
+    name = ENGINE_DATASET + "_brivis_check"
+    catalog.register(dataclasses.replace(
+        synthetic.write_ytvis_dataset(root, "brivis_check", [ENGINE_CHECK_VIDEO], cats,
+                                      seed=SEED + 3), name=name))
+    h, w = ENGINE_CHECK_VIDEO[:2]
+    base = _brivis_config(clip, f"model.resampler.name={resampler}", f"datasets.root={root}",
+                          f"datasets.test=[{name}]", "model.test.window_inference=true",
+                          f"model.test.window_size={ENGINE_CHECK_WINDOW}", "model.test.amp=false",
+                          f"input.min_size_test={h}", f"input.pad_size=[{h},{w}]")
+    model = _san_model(base, tree, "cpu", SEED + 3)
+    text = _text(np.random.RandomState(SEED + 3))
+    runs = {}
+    for device in ("cpu", DEVICE):
+        cfg = dataclasses.replace(base, output_dir=os.path.join(root, f"brivis_{device}"))
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = engine.evaluate_dataset(cfg, model, name, text, device=device)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(cfg.output_dir, f"results_{name}.json")) as f:
+            runs[device] = (metrics, json.load(f), seconds, read_counts())
+    (m_ref, p_ref, s_ref, _), (m_got, p_got, s_got, launches) = runs["cpu"], runs[DEVICE]
+    same = [p["category_id"] for p in p_got] == [p["category_id"] for p in p_ref]
+    score_err = max((abs(a["score"] - b["score"]) for a, b in zip(p_got, p_ref)), default=0.0)
+    agree = min((_masks_agree(a["segmentations"], b["segmentations"])
+                 for a, b in zip(p_got, p_ref)), default=1.0)
+    metric_err = max(abs(m_got[k] - m_ref[k]) for k in m_ref)
+    emit({"phase": "brivis_engine_kernels_vs_plain", "resampler": resampler, "dtype": "float32",
+          "tf32": False, "video_hwtn": ENGINE_CHECK_VIDEO, "window": ENGINE_CHECK_WINDOW,
+          "predictions": [len(p_got), len(p_ref)], "categories_equal": same,
+          "max_abs_score_err": score_err, "min_mask_agreement": agree,
+          "max_abs_metric_err": metric_err, "kernel_launches": launches,
+          "seconds_card_cpu": [s_got, s_ref],
+          "tol": {"score_atol": ENGINE_F32_SCORE_ATOL, "mask_agree": ENGINE_F32_MASK_AGREE,
+                  "metric_atol": ENGINE_F32_METRIC_ATOL}})
+    if not (same and len(p_got) == len(p_ref) and score_err <= ENGINE_F32_SCORE_ATOL
+            and agree >= ENGINE_F32_MASK_AGREE and metric_err <= ENGINE_F32_METRIC_ATOL):
+        raise AssertionError(f"the BriVIS ({resampler}) engine on the card disagrees with the CPU")
+    if launches["msda_fwd"] == 0 or launches["hungarian"] == 0:
+        raise AssertionError(f"the card's BriVIS engine run skipped a kernel: {launches}")
+
+
+def phase_brivis_engine(card, clip, tree):
+    """14.5: the engine with the BriVIS recipe's eval settings over phase 10's
+    dataset (the temporal resampler over each whole video, padded to the
+    JAX engine's time bucket): a run with K4 recorded (the warm-up), then the
+    timed run with its split and peak; K4 on the engine's own costs against
+    hungarian_plain; then the decoupled and the raw resamplers, one f32
+    video each, card against CPU.  Returns the launches of the timed run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_brivis_engine_")
+    try:
+        cats, write_s = _write_engine_dataset(root)
+        cfg = _brivis_config(clip, f"datasets.root={root}", f"datasets.test=[{ENGINE_DATASET}]",
+                             f"output_dir={os.path.join(root, 'out')}")
+        model = _san_model(cfg, tree, DEVICE, SEED)
+        text = _text(np.random.RandomState(SEED))
+        with HungarianRecorder() as tracking:
+            _engine_run(cfg, model, text, DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with BrivisSpans(engine) as stages:
+            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        enc = cfg.model.pixel_decoder.transformer_enc_layers
+        window = engine.window_size(cfg)
+        expected = {**{k: 0 for k in launches},
+                    "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in ENGINE_VIDEOS),
+                    "hungarian": len(ENGINE_VIDEOS)}
+        finite = all(np.isfinite(v) for v in metrics.values())
+        t0 = time.perf_counter()
+        plain = _plain_assignments(tracking.costs)
+        plain_s = time.perf_counter() - t0
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        split = _engine_split(spans, wall)
+        split.update({f"{k}_device": v / 1e3 for k, v in stages.split_ms().items()})
+        emit({"phase": "brivis_engine_full_width", "config": BRIVIS_CONFIG,
+              "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+              "dtype": "bf16 AMP" if cfg.model.test.amp else "float32", "window": window,
+              "resampled_frames": [engine._bucket(t) for _, _, t, _ in ENGINE_VIDEOS],
+              "metrics": metrics, "metrics_finite": finite, "predictions": len(spans.preds),
+              "launches": launches, "expected_launches": expected, "frames": spans.frames,
+              "wall_s": wall, "frames_per_s": spans.frames / wall, "split_s": split,
+              "peak_mem_gib": peak, "k4_problems": len(plain), "k4_equal_to_plain": not differ,
+              "k4_problems_differing": differ, "k4_plain_seconds": plain_s,
+              "dataset_write_s": write_s, "card": card})
+        if launches != expected:
+            raise AssertionError(f"BriVIS engine launches {launches} != {expected}")
+        if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+            raise AssertionError(f"BriVIS engine metrics {metrics}, {len(spans.preds)} predictions")
+        if differ or len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"K4 on the BriVIS engine's costs differs from hungarian_plain: "
+                                 f"{differ}")
+        del model
+        for resampler in BRIVIS_ENGINE_CHECKS:
+            _brivis_engine_vs_plain(root, cats, clip, tree, resampler)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_brivis_cli(card, clip, stage1):
+    """14.6: the CLI with the BriVIS recipe as users run stage 2 (16 clips of
+    3 frames a step) from the SANOnline checkpoint directory ``stage1``
+    (phase 13's CLI run), BRIVIS_CLI_STEPS steps across the matcher switch
+    and a checkpoint, then ``--eval-only``; the grafted segmenter and
+    clip_adapter equal the stage-1 checkpoint's bit for bit, the resampler
+    moved from its init.  Returns the launches of the two runs."""
+    import train_net_torch as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_brivis_cli_")
+    saves, switched = [], []
+    orig_save, orig_switch = cli.save_checkpoint, cli.use_brivis_matcher
+
+    def timed_save(directory, step, state):
+        t0 = time.perf_counter()
+        path = orig_save(directory, step, state)
+        saves.append({"step": step, "ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": os.path.getsize(path)})
+        return path
+
+    def recording_switch(step, cfg, num_text_classes, image_matcher):
+        switched.append([step.state.step, image_matcher])
+        orig_switch(step, cfg, num_text_classes, image_matcher)
+
+    cli.save_checkpoint, cli.use_brivis_matcher = timed_save, recording_switch
+    try:
+        out = os.path.join(root, "out")
+        common = _cli_data(root) + [f"model.weights={stage1}",
+                                    f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}",
+                                    f"solver.max_iter={BRIVIS_CLI_STEPS}",
+                                    f"solver.checkpoint_period={BRIVIS_CLI_STEPS}",
+                                    f"output_dir={out}"]
+
+        def run(*flags):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(["--config-file", BRIVIS_CONFIG, *flags, *common])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, read_counts()
+
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches = run()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lines = _metrics_lines(out)
+        cfg = load_config(BRIVIS_CONFIG, common)
+        t = cfg.input.sampling_frame_num
+        expected = _train_launches(cfg, *cfg.input.pad_size, BRIVIS_CLI_STEPS, t)
+        steps_ms = [r["step_s"] * 1e3 for r in lines]
+        finite = all(np.isfinite(r[k]) for r in lines
+                     for k in ("total_loss", "loss_ce", "loss_mask", "loss_dice", "bc_loss",
+                               "htm_loss", "grad_norm"))
+        ckpt_dir = os.path.join(out, "checkpoints")
+        stage2 = load_checkpoint(ckpt_dir)["params"]
+        stage1_params = load_checkpoint(stage1)["params"]
+        grafted = [k for k in stage2 if k.startswith(("segmenter.", "clip_adapter."))]
+        graft_equal = (set(grafted) == set(stage1_params)
+                       and all(torch.equal(stage2[k], stage1_params[k]) for k in grafted))
+        del stage1_params
+        fresh = init_params(train.build_model(cfg, device="cpu"), seed=cfg.seed).state_dict()
+        moved = sum(not torch.equal(fresh[k], stage2[k]) for k in fresh
+                    if k.startswith(("resampler.", "brownian_proj.")))
+        emit({"phase": "brivis_cli_train", "config": BRIVIS_CONFIG, "stage1": "phase 13's CLI run",
+              "batch": [cfg.solver.ims_per_batch, t],
+              "points": cfg.model.criterion.train_num_points, "amp": cfg.solver.amp,
+              "steps": [r["step"] for r in lines], "ms_per_step": steps_ms,
+              "loader_wait_ms": [r["data_wait_s"] * 1e3 for r in lines],
+              "losses": [r["total_loss"] for r in lines],
+              "bc_htm": [[r["bc_loss"], r["htm_loss"]] for r in lines],
+              "grad_norms": [r["grad_norm"] for r in lines], "matcher_switched_at": switched,
+              "checkpoint_saves": saves, "grafted_params": len(grafted),
+              "grafted_bit_equal": graft_equal, "resampler_params_moved": moved,
+              "peak_mem_gib": peak, "wall_s": wall, "launches": launches,
+              "expected_launches": expected, "card": card})
+        if launches != expected:
+            raise AssertionError(f"BriVIS CLI train launches {launches} != {expected}")
+        if [r["step"] for r in lines] != list(range(1, BRIVIS_CLI_STEPS + 1)) or not finite:
+            raise AssertionError(f"the BriVIS CLI's metrics.jsonl is not {BRIVIS_CLI_STEPS} "
+                                 "finite steps")
+        if switched != [[BRIVIS_CLI_STEPS // 2, False]]:
+            raise AssertionError(f"the BriVIS matcher switched at {switched}")
+        if not grafted or not graft_equal or not moved:
+            raise AssertionError("the grafted stage 1 changed or the resampler did not move")
+
+        wall2, launches2 = run("--eval-only", "--weights", ckpt_dir)
+        ds = cfg.datasets.test[0]
+        with open(os.path.join(out, f"metrics_{ds}.json")) as f:
+            metrics = json.load(f)
+        enc = cfg.model.pixel_decoder.transformer_enc_layers
+        window = engine.window_size(cfg)
+        expected2 = {**{k: 0 for k in launches2},
+                     "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in CLI_EVAL_VIDEOS),
+                     "hungarian": len(CLI_EVAL_VIDEOS)}
+        emit({"phase": "brivis_cli_eval", "metrics": metrics, "wall_s": wall2,
+              "launches": launches2, "expected_launches": expected2, "card": card})
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the BriVIS CLI's eval wrote {metrics}")
+        if launches2 != expected2:
+            raise AssertionError(f"BriVIS CLI eval launches {launches2} != {expected2}")
+        return launches, launches2
+    finally:
+        cli.save_checkpoint, cli.use_brivis_matcher = orig_save, orig_switch
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_brivis(card, clip, stage1):
+    """Phase 14: BriVIS with its recipe's model (SAN's, frozen, and a temporal
+    resampler of 6 layers) over ``clip``'s random ViT-B/16, stage 2 of the
+    SANOnline checkpoint directory ``stage1``; returns its paths' launch
+    counts by name."""
+    import train_net_torch as cli
+
+    cfg = _brivis_config(clip)
+    tree = cli.read_clip(cfg)
+    launches = {"brivis_eval": phase_brivis_window(card, cfg, tree)}
+    phase_brivis_vs_plain(cfg, tree)
+    launches["brivis_train"] = phase_brivis_train(card, cfg, tree)
+    phase_brivis_train_vs_plain(cfg, tree)
+    launches["brivis_engine"] = phase_brivis_engine(card, clip, tree)
+    del tree
+    launches["brivis_cli_train"], launches["brivis_cli_eval"] = phase_brivis_cli(card, clip,
+                                                                                 stage1)
     return launches
 
 
@@ -2700,7 +3201,9 @@ def main() -> int:
         clip = write_clip_files(clip_dir)
         cli_launches, cli_eval_launches, cli_recorded = phase_cli(card, clip)
         ensemble_launches = phase_ensemble(card, clip)
-        san_launches = phase_san(card, clip)
+        stage1 = os.path.join(clip_dir, "san_checkpoints")
+        san_launches = phase_san(card, clip, keep_checkpoints=stage1)
+        brivis_launches = phase_brivis(card, clip, stage1)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in cli_recorded.items():
@@ -2723,7 +3226,8 @@ def main() -> int:
                               "engine": engine_launches[name], "cli_train": cli_launches[name],
                               "cli_eval": cli_eval_launches[name],
                               "ensemble": ensemble_launches[name],
-                              **{path: n[name] for path, n in san_launches.items()}},
+                              **{path: n[name] for path, n in san_launches.items()},
+                              **{path: n[name] for path, n in brivis_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

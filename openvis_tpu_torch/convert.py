@@ -6,6 +6,8 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
 
   * Dense ``kernel`` (in, out)      -> ``weight`` (out, in)
   * Conv ``kernel`` HWIO            -> ``weight`` OIHW
+  * 1-D Conv ``kernel`` (k, in, out) -> ``Conv1d`` ``weight`` (out, in, k)
+    (BriVIS's resampler)
   * LayerNorm/GroupNorm ``scale``   -> ``weight``
   * Embed ``embedding``             -> ``weight`` (CLIP's token embedding)
   * everything else as it is: ``bias``, the ``FrozenAffine`` ``scale``/``bias``
@@ -71,6 +73,8 @@ def params_from_flax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             else:
@@ -86,12 +90,16 @@ def params_from_flax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
     """The flax path of the port's parameter ``key`` of rank ``ndim``: a
-    Dense/Conv ``weight`` is flax's ``kernel``, a norm ``weight`` its
-    ``scale``."""
+    Dense/Conv ``weight`` (rank 2, 3 or 4) is flax's ``kernel``, a norm
+    ``weight`` (rank 1) its ``scale``."""
     *mods, leaf = key.split(".")
     if leaf == "weight":
-        leaf = "kernel" if ndim in (2, 4) else "scale"
+        leaf = "kernel" if ndim in (2, 3, 4) else "scale"
     return (*mods, leaf)
+
+
+# the port's weight axes -> flax's kernel axes: Dense, 1-D Conv, 2-D Conv
+_KERNEL_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -101,7 +109,7 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         arr = t.detach().cpu().float().numpy()
         *mods, leaf = flax_path(key, arr.ndim)
         if leaf == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+            arr = arr.transpose(_KERNEL_TO_FLAX[arr.ndim])
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
@@ -128,8 +136,9 @@ def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random init following the JAX package's initializers: lecun-normal
-    kernels with zero biases, unit norms, identity frozen affines, N(0, 1)
-    level/query embeddings, N(0, hidden^-1/2) no-object embedding, the
+    kernels (``Conv1d`` too, fan-in ``in * k`` as flax's) with zero biases,
+    unit norms, identity frozen affines, N(0, 1) level/query embeddings
+    (BriVIS's ``query_emb``/``query_pos`` too), N(0, hidden^-1/2) no-object embedding, the
     MSDeformAttn ring bias with zero sampling-offset and attention-weight
     kernels, CLIP's embeddings and projections (N(0, 0.02) class, N(0, 0.01)
     positional, N(0, width^-1/2) projections), SAN's N(0, dim^-1/2)
@@ -137,7 +146,7 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
     gives the same weights everywhere."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             _lecun_normal_(mod.weight, g)
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -148,7 +157,7 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             mod.scale.fill_(1.0)
             mod.bias.zero_()
         for name, p in mod.named_parameters(recurse=False):
-            if name in ("level_embed", "query_feat", "query_embed"):
+            if name in ("level_embed", "query_feat", "query_embed", "query_emb", "query_pos"):
                 p.copy_(torch.randn(p.shape, generator=g))
             elif name == "non_object_embedding":
                 hidden = mod.segmenter.predictor.hidden_dim

@@ -7,6 +7,15 @@ identity is restored by embedding tracking over the whole video
 (``minvis.py:320-338``), the top-k (query, class) pairs are kept and their
 masks go to the YTVIS evaluator.
 
+BriVIS (JAX ``_evaluate_brivis_windowed``, ``_evaluate_brivis_raw_windowed``,
+``engine.py:585-800``): the frozen frame stack runs in windows, its small
+outputs stay on the device, the whole video's embeds are tracked and
+resampled once, and the resampler's heads with the biased CLIP post-encode
+run per window; the class scores are the softmax of the logits' mean over the
+real frames.  The raw resampler interleaves: each layer's temporal half runs
+over the whole video, its frame half per window against that window's token
+maps.
+
 Differences from the JAX engine, none of which changes a result on the real
 frames:
 
@@ -14,7 +23,12 @@ frames:
   ``window`` frames and the time axis to a multiple of 8 for XLA; here each
   window runs at its real length and tracking and the frame mean see the T
   real frames only.  The per-frame stack is independent across frames and
-  tracking is causal, so the real frames' outputs are the same.
+  tracking is causal, so the real frames' outputs are the same.  The BriVIS
+  resampler is the exception: its temporal self-attention is not masked, so
+  frames appended to the video change the real frames' outputs.  The port
+  pads its input to ``_bucket(t)`` frames by repeating the last one, as the
+  JAX engine does, so that the two agree (the reference runs it over the
+  real T; ROADMAP.md records the difference).
 * The windows' outputs stay on the device; the only blocking copies of a
   video are the top-k scores and labels, and each prediction's thresholded
   masks (``evals/ytvis_eval.py``), which are resized on the device.
@@ -37,8 +51,8 @@ videos p, p + P, ... (``max_videos`` counted globally); rank 0 gathers the
 predictions (``torch.distributed``, no shared file system) and scores them;
 the other processes return ``{}``.
 
-Everything the JAX engine dispatches elsewhere (BriVIS, the offline archs,
-OpenVIS, OV2Seg, BURST) raises ``NotImplementedError`` naming its ROADMAP.md
+Everything the JAX engine dispatches elsewhere (the offline archs, OpenVIS,
+OV2Seg, BURST) raises ``NotImplementedError`` naming its ROADMAP.md
 item.
 """
 
@@ -66,8 +80,8 @@ from openvis_tpu_torch.train import eval_model, resolve_device
 logger = logging.getLogger(__name__)
 
 # the ROADMAP.md queue 1 item that ports each other meta architecture's eval
-_ITEM_OF_ARCH = {"SAN": 8, "BriVIS": 6, "OpenVIS": 7, "OpenVISOnline": 7}
-_PORTED_ARCHS = ("SimpleBaselineOnline", "SANOnline")
+_ITEM_OF_ARCH = {"SAN": 8, "OpenVIS": 7, "OpenVISOnline": 7}
+_PORTED_ARCHS = ("SimpleBaselineOnline", "SANOnline", "BriVIS")
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -195,6 +209,84 @@ def make_ensemble_fn(cfg: Config, clip_visual_apply, params: Dict[str, torch.Ten
     return fn
 
 
+def _bucket(n: int, step: int = 8) -> int:
+    """The JAX engine's time bucket: a multiple of ``step``, at least ``step``."""
+    return max(step, -(-n // step) * step)
+
+
+class _Method(nn.Module):
+    """``model.<name>`` as a module's forward, so ``torch.func.functional_call``
+    can run it with other parameters (the names take a ``model.`` prefix)."""
+
+    def __init__(self, model: nn.Module, name: str):
+        super().__init__()
+        self.model, self.name = model, name
+
+    def forward(self, *args):
+        return getattr(self.model, self.name)(*args)
+
+
+def make_brivis_video_fn(cfg: Config, model: nn.Module, params: Dict[str, torch.Tensor]
+                         ) -> Callable:
+    """f(pixels (T, H, W, 3) on the host, text (K, D), device, dtype) -> top-k
+    dict of one video through BriVIS: the frozen frame stack in windows, the
+    embeds padded to ``_bucket(T)`` frames with the last one, tracked and
+    resampled over the whole video, the heads and the biased CLIP post-encode
+    per window of real frames, the top-k of the frame-mean scores."""
+    model = eval_model(model)
+    window = window_size(cfg)
+    topk = cfg.model.test.topk_per_video
+    raw = cfg.model.resampler.name == "raw"
+    nlayers = cfg.model.resampler.num_layers
+    prefixed = {f"model.{n}": p for n, p in params.items()}
+    methods = {}
+
+    def call(name, *args):
+        if name not in methods:
+            methods[name] = _Method(model, name)
+        return torch.func.functional_call(methods[name], prefixed, args)
+
+    def raw_layers(aligned, stack, t, tb):
+        """The raw resampler's layers: (Tb, Q, C) aligned -> normed (Tb, Q, C)."""
+        ms = [torch.cat([p["ms_feats"][lvl] for p in stack]) for lvl in range(3)]
+        ms_pos = stack[0]["ms_pos"]
+        # the padded frames cross-attend into the last real frame's tokens
+        frame = torch.arange(tb, device=aligned.device).clamp(max=t - 1)
+        x = aligned.transpose(0, 1)                                   # (Q, Tb, C)
+        for i in range(nlayers):
+            pf = call("raw_temporal", x, i).transpose(0, 1)           # (Tb, Q, C)
+            lvl = i % 3
+            pf = torch.cat([call("raw_frame", pf[j:j + window], ms[lvl][frame[j:j + window]],
+                                 ms_pos[lvl], i) for j in range(0, tb, window)])
+            x = pf.transpose(0, 1)
+        return call("raw_finalize", x.transpose(0, 1))
+
+    def fn(pixels, text, device, dtype):
+        t = pixels.shape[0]
+        stack = [call("frame_stack", torch.from_numpy(pixels[i:i + window]).to(
+                     device, dtype, non_blocking=True), min(window, t - i))
+                 for i in range(0, t, window)]
+        embeds = torch.cat([p["pred_embeds"][0] for p in stack])       # (T, Q, C)
+        tb = _bucket(t)
+        padded = torch.cat([embeds, embeds[-1:].expand(tb - t, *embeds.shape[1:])])
+        indices = track_by_embeds(padded[None])                        # (1, Tb, Q)
+        aligned = apply_track_indices(padded[None], indices)
+        final = raw_layers(aligned[0], stack, t, tb) if raw else call("resample", aligned)[0]
+        final = final[:t]                                              # the real frames
+        feats = {k: torch.cat([p[k] for p in stack])
+                 for k in ("mask_feats", "attn_feats", "bk_tokens")}
+        heads = [call("predict_window", final[i:i + window],
+                      *(feats[k][i:i + window] for k in ("mask_feats", "attn_feats",
+                                                         "bk_tokens")), text)
+                 for i in range(0, t, window)]
+        masks = torch.cat([m for m, _ in heads])                      # (T, Q, h, w)
+        logits = torch.cat([lg for _, lg in heads])                   # (T, Q, K+1)
+        scores = torch.softmax(logits.float().mean(0), dim=-1)[:, :-1]
+        return inference_video_topk(scores, masks.transpose(0, 1), topk)
+
+    return fn
+
+
 def _check_ported(cfg: Config) -> None:
     arch = cfg.model.meta_architecture
     if arch not in _PORTED_ARCHS:
@@ -228,8 +320,10 @@ def evaluate_dataset(
     text = torch.as_tensor(text_feats).to(device, dtype)
     window_fn = make_window_fn(cfg, model)
     post_fn = make_postprocess_fn(cfg)
-    ensemble_fn = None
-    if (clip_visual_apply is not None and cfg.model.clip_adapter.clip_ensemble
+    video_fn = ensemble_fn = None
+    if cfg.model.meta_architecture == "BriVIS":
+        video_fn = make_brivis_video_fn(cfg, model, params)
+    elif (clip_visual_apply is not None and cfg.model.clip_adapter.clip_ensemble
             and cfg.model.meta_architecture.startswith("SimpleBaseline")):
         ensemble_fn = make_ensemble_fn(cfg, clip_visual_apply, params, text)
 
@@ -239,6 +333,9 @@ def evaluate_dataset(
                                        dist.world()):
             pixels = sample["pixels"]                          # (T, H, W, 3) numpy
             t = pixels.shape[0]
+            if video_fn is not None:
+                _process(evaluator, rec, sample, video_fn(pixels, text, device, dtype), counts)
+                continue
             # the uploads do not wait for the stream: a blocking copy would
             # hold the host behind the previous window's queued work
             parts = [window_fn(params, torch.from_numpy(pixels[i:i + window]).to(
@@ -253,11 +350,16 @@ def evaluate_dataset(
             else:
                 topk = ensemble_fn(logits, masks, embeds, pixels)
             del logits, masks, embeds
-            n = len(evaluator.predictions)
-            evaluator.process(rec["video_id"], topk, sample["image_size"],
-                              sample["orig_size"], pixels.shape[1:3])
-            counts.append(len(evaluator.predictions) - n)
+            _process(evaluator, rec, sample, topk, counts)
     return _finalize(cfg, dataset_name, evaluator, counts)
+
+
+def _process(evaluator: YTVISEvaluator, rec, sample, topk, counts: List[int]) -> None:
+    """A video's top-k to the evaluator; its number of predictions to ``counts``."""
+    n = len(evaluator.predictions)
+    evaluator.process(rec["video_id"], topk, sample["image_size"], sample["orig_size"],
+                      sample["pixels"].shape[1:3])
+    counts.append(len(evaluator.predictions) - n)
 
 
 def _record_order(parts: List[Tuple[List[Dict], List[int]]]) -> List[Dict]:

@@ -2,8 +2,9 @@
 
 Port of ``openvis_tpu/losses/criterion.py``: ``CriterionSettings``,
 ``target_rows_t`` (plain layout), ``match_costs``, ``match``,
-``_loss_labels``, ``_loss_masks``, ``num_masks_normalizer`` and
-``set_criterion``.
+``tracking_match``, ``_loss_labels``, ``_loss_masks``,
+``num_masks_normalizer`` and ``set_criterion`` (with BriVIS's
+``fixed_assignment``).
 
   * matching cost = ``w_class * (-p[target])`` + ``w_mask * point sigmoid-CE``
     + ``w_dice * point dice`` on ``num_points`` shared random points per batch
@@ -13,13 +14,15 @@ Port of ``openvis_tpu/losses/criterion.py``: ``CriterionSettings``,
     and point-sampled sigmoid-CE / dice mask losses on a 3x oversampled
     candidate pool shared by the rows of a batch item, of which the 0.75
     most uncertain per row are kept, plus fresh random points;
-  * every decoder layer is matched anew (deep supervision).
+  * every decoder layer is matched anew (deep supervision), unless a
+    ``fixed_assignment`` is given: then no cost is drawn or solved and every
+    layer reuses it.
 
 The points come from an explicit ``torch.Generator`` through one argument,
 ``draw_points(generator, batch, p) -> (*batch, p, 2)`` (default
 ``sorted_uniform_points``), so a test can hand both packages the same points.
 The L layers' cost matrices are solved in ONE Hungarian call of (L*B, N, Q)
-problems.  Not ported yet: ``tracking_match`` and the SAN/BriVIS branches.
+problems.
 
 Global-batch semantics under a process group (``parallel/dist.py``), as the
 JAX step computes the loss of the global array: each process holds B of the
@@ -33,7 +36,7 @@ of the global batch's, and their sum over the processes is the global loss.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -137,6 +140,62 @@ def match(draw: Draw, pred_logits, pred_masks, targets: ClipTargets,
     return batched_hungarian(cost)
 
 
+def process_draw(generator: torch.Generator, draw_points, device) -> Draw:
+    """draw(batch, p) -> (batch, p, 2) points on ``device``: the global
+    batch's points from ``generator``, of which this process keeps its
+    slice."""
+    rank, world = dist.rank(), dist.world()
+
+    def draw(batch: int, p: int) -> torch.Tensor:
+        pts = draw_points(generator, (batch * world,), p)
+        return pts[rank * batch:(rank + 1) * batch].to(device)
+
+    return draw
+
+
+def tracking_match(
+    generator: torch.Generator,
+    pred_logits: Optional[torch.Tensor],  # (B, T, Q, C+1) per-frame logits
+    pred_masks: torch.Tensor,             # (B, Q, T, H, W)
+    targets: ClipTargets,
+    s: CriterionSettings,
+    draw_points=sorted_uniform_points,
+) -> torch.Tensor:
+    """``VideoHungarianTrackingMatcher`` (JAX ``criterion.py:222-296``): each
+    target is matched in its first-appearance frame only, queries claimed in
+    earlier frames excluded (cost + 1e6), and the assignment holds for every
+    frame.  The per-frame costs come from one batched pass; then one
+    Hungarian call a frame commits the rows that first appear in it.
+    Returns (B, N) int64 query per slot."""
+    b, q, t, h, w = pred_masks.shape
+    n = targets.labels.shape[1]
+    dev = pred_masks.device
+    first = torch.argmax(targets.frame_valid.to(torch.int8), dim=-1)      # (B, N)
+    th, tw = targets.masks.shape[-2:]
+    tgt_bt = ClipTargets(
+        labels=targets.labels[:, None].expand(b, t, n).reshape(b * t, n),
+        masks=targets.masks.transpose(1, 2).reshape(b * t, n, 1, th, tw),
+        valid=targets.valid[:, None].expand(b, t, n).reshape(b * t, n),
+        frame_valid=torch.ones(b * t, n, 1, dtype=torch.bool, device=dev))
+    logits_bt = None if pred_logits is None else pred_logits.reshape(b * t, q, -1)
+    masks_bt = pred_masks.transpose(1, 2).reshape(b * t, q, 1, h, w)
+    with torch.no_grad():
+        cost = match_costs(process_draw(generator, draw_points, dev), logits_bt, masks_bt,
+                           tgt_bt, s).view(b, t, n, q)
+        assignment = torch.zeros(b, n, dtype=torch.int64, device=dev)
+        used = torch.zeros(b, q, device=dev)
+        for f in range(t):
+            commit = targets.valid & (first == f)                           # (B, N)
+            cost_f = torch.where(commit[:, :, None], cost[:, f] + used[:, None, :] * 1e6,
+                                 torch.zeros((), device=dev))
+            cols = batched_hungarian(cost_f)
+            assignment = torch.where(commit, cols, assignment)
+            hit = torch.zeros(b, q + 1, device=dev).scatter_add_(
+                1, torch.where(commit, cols, q), torch.ones(b, n, device=dev))[:, :q]
+            used = torch.clamp(used + hit, max=1.0)
+    return assignment
+
+
 def _class_targets(pred_logits: torch.Tensor, assignment: torch.Tensor,
                    targets: ClipTargets, s: CriterionSettings
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -234,24 +293,20 @@ def num_masks_normalizer(targets: ClipTargets) -> torch.Tensor:
 def set_criterion(
     generator: torch.Generator,
     pred_logits_all: Optional[torch.Tensor],  # (L, B, Q, C+1) or None
-    pred_masks_all: torch.Tensor,             # (L, B, Q, T, H, W)
+    pred_masks_all: Sequence[torch.Tensor],   # (L, B, Q, T, H, W) or L such tensors
     targets: ClipTargets,
     s: CriterionSettings,
     draw_points=sorted_uniform_points,
+    fixed_assignment: Optional[torch.Tensor] = None,  # (B, N), reused by every layer
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Returns ``(losses, last_assignment)``: losses ``loss_ce``,
     ``loss_mask``, ``loss_dice`` of shape (L,) and the scalar ``total``;
-    layer L-1 is the final decoder output."""
-    num_layers = pred_masks_all.shape[0]
+    layer L-1 is the final decoder output.  The layers' masks may differ in
+    dtype when given as a sequence."""
+    num_layers = len(pred_masks_all)
     b, n = targets.labels.shape
-    dev = pred_masks_all.device
-    rank, world = dist.rank(), dist.world()
-
-    def draw(batch: int, p: int) -> torch.Tensor:
-        # the global batch's points; this process keeps its slice
-        pts = draw_points(generator, (batch * world,), p)
-        return pts[rank * batch:(rank + 1) * batch].to(dev)
-
+    dev = pred_masks_all[0].device
+    draw = process_draw(generator, draw_points, dev)
     nm = num_masks_normalizer(targets)
     tgt_t = target_rows_t(targets)
 
@@ -259,11 +314,14 @@ def set_criterion(
         logits = None if pred_logits_all is None else pred_logits_all[i].float()
         return logits, pred_masks_all[i]
 
-    # all layers' costs first, then one Hungarian call for the L*B problems
-    with torch.no_grad():
-        costs = [match_costs(draw, *layer_inputs(i), targets, s, tgt_t)
-                 for i in range(num_layers)]
-    assignments = batched_hungarian(torch.cat(costs)).view(num_layers, b, n)
+    if fixed_assignment is not None:
+        assignments = fixed_assignment[None].expand(num_layers, b, n)
+    else:
+        # all layers' costs first, then one Hungarian call for the L*B problems
+        with torch.no_grad():
+            costs = [match_costs(draw, *layer_inputs(i), targets, s, tgt_t)
+                     for i in range(num_layers)]
+        assignments = batched_hungarian(torch.cat(costs)).view(num_layers, b, n)
     class_loss = pred_logits_all is not None and s.use_class_loss
     weight_sums = [None] * num_layers
     if class_loss and dist.initialized():

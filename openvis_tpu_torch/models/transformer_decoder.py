@@ -283,6 +283,12 @@ class MaskedTransformerDecoder(nn.Module):
             # of the last prediction
             "pred_embeds": dec_out.reshape(bs, t, self.num_queries, self.hidden_dim),
             "pred_masks": masks_all[-1],
+            # BriVIS's resampler reads these, in JAX's layouts: the mask
+            # features NHWC, the three token maps (N, hw_l, C) with their
+            # level embeds and their encodings (1, hw_l, C)
+            "mask_feats": mask_features.permute(0, 2, 3, 1),
+            "ms_feats": srcs,
+            "ms_pos": poses,
         }
         if af is None:
             out.update(pred_logits_all=logits_all, pred_logits=logits_all[-1])

@@ -22,9 +22,13 @@ import torch
 
 from openvis_tpu_torch.ops import point_sample_cuda
 
-# the JAX package's _PALLAS_MAX_HW: the stride-4 prediction masks take the
-# kernel, the full-resolution target masks the gather composition
-KERNEL_MAX_HW = 1 << 16
+# the stride-4 prediction masks take the kernel, the full-resolution target
+# masks the gather composition.  Twice the JAX package's _PALLAS_MAX_HW (a
+# bound of the TPU kernel's VMEM; K5/K6 have none), so that BriVIS's tall
+# prediction masks (3 frames of 120x216 = 77,760 pixels) take the kernel too,
+# where JAX samples them by its gather composition; the 480x864 targets
+# (414,720 pixels) stay above it
+KERNEL_MAX_HW = 1 << 17
 
 
 def _corners(coords: torch.Tensor, h: int, w: int, cdt: torch.dtype):

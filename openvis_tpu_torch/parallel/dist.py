@@ -10,6 +10,8 @@ holds its slice of the global batch and the collectives are explicit:
   * ``per_process_batch``: the split of ``solver.ims_per_batch``;
   * ``all_reduce_sum`` and ``all_reduce_grads``: sums over the processes, the
     gradients as one flat f32 buffer (one call, not one per tensor);
+  * ``all_gather_rows``: the processes' tensors concatenated on the first
+    axis, differentiable (BriVIS's global brownian pool);
   * ``gather_to_rank0`` and ``barrier``.
 """
 
@@ -86,6 +88,34 @@ def all_reduce_grads(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return list(tensors)
     flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]))
     return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Forward: every process's (n, ...) rows concatenated in rank order.
+    Backward: the gradient of the concatenation summed over the processes
+    (each process's loss reads every row), of which this process keeps its
+    own rows; an all-reduce, as gloo has no reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(world())]
+        dist.all_gather(parts, x.contiguous())
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = all_reduce_sum(grad.contiguous().clone())
+        return grad[rank() * ctx.n:(rank() + 1) * ctx.n]
+
+
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The processes' ``x`` (same shape on each) concatenated on axis 0 in
+    rank order, with the gradient returned to each row's owner; ``x``
+    without a process group."""
+    if not initialized():
+        return x
+    return _AllGatherRows.apply(x)
 
 
 def gather_to_rank0(obj: Any) -> Optional[List[Any]]:

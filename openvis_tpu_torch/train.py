@@ -1,10 +1,13 @@
 """Model assembly, the train step and the windowed video eval entry point.
 
-Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online) and SANOnline:
-``build_model`` (``:25``), the loss closure ``make_loss_fn`` with its AMP rule
-(``:70-174``), the train step of ``openvis_tpu/parallel/train_step.py``
+Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), SANOnline and
+BriVIS: ``build_model`` (``:25``), the loss closure ``make_loss_fn`` with its
+AMP rule (``:70-174``), the train step of ``openvis_tpu/parallel/train_step.py``
 (``build_train_step``, one process or one of several over
-``torch.distributed``) and ``make_eval_fn`` (``:177-203``).
+``torch.distributed``) and ``make_eval_fn`` (``:177-203``).  BriVIS's loss
+takes its assignment from the frozen image outputs or, with
+``brivis_image_matcher=False`` (the second half of training), from the
+resampler's last layer.
 
 The entry points run on the card: ``device`` defaults to ``"cuda"``, and
 without a CUDA device they raise unless the caller passes ``device="cpu"``
@@ -14,6 +17,7 @@ without a CUDA device they raise unless the caller passes ``device="cpu"``
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -21,6 +25,7 @@ from torch import nn
 
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
+from openvis_tpu_torch.models.meta.brivis import BriVISModel, brivis_loss
 from openvis_tpu_torch.models.meta.san import SANModel, san_loss
 from openvis_tpu_torch.models.meta.simple_baseline import (
     SimpleBaselineModel,
@@ -56,7 +61,8 @@ def _model_device(model: nn.Module) -> torch.device:
 # the ported architectures: their module and their loss (JAX ``train.py:25-60``, ``:70-113``)
 _ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
           "SimpleBaselineOnline": (SimpleBaselineModel, simple_baseline_loss),
-          "SANOnline": (SANModel, san_loss)}
+          "SANOnline": (SANModel, san_loss),
+          "BriVIS": (BriVISModel, brivis_loss)}
 
 
 def build_model(cfg: Config, device="cuda") -> nn.Module:
@@ -74,8 +80,8 @@ def build_model(cfg: Config, device="cuda") -> nn.Module:
 
 
 def eval_model(model: nn.Module) -> nn.Module:
-    """``model`` as evaluation runs it: SAN without the aux layers' CLIP
-    logits (a shallow copy sharing the parameters; JAX ``engine.py:315-317``)."""
+    """``model`` as evaluation runs it: SAN and BriVIS without the aux
+    layers' CLIP logits (a shallow copy sharing the parameters; JAX ``engine.py:315-317``)."""
     if getattr(model, "supervise_aux_logits", False):
         model = copy.copy(model)
         model.supervise_aux_logits = False
@@ -93,7 +99,8 @@ def _keeps_f32(path) -> bool:
 
 
 def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
-                 draw_points=sorted_uniform_points) -> Callable:
+                 draw_points=sorted_uniform_points,
+                 brivis_image_matcher: bool = True) -> Callable:
     """Returns loss_fn(params, batch, generator) -> (total, metrics).
 
     ``params`` maps the model's parameter names to f32 master tensors;
@@ -102,11 +109,17 @@ def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
     and every f32 parameter is cast to bf16 at use, except the norms'; the
     cast is differentiable, so the gradients come back f32.  Output tensors
     return to f32, except the mask-logit stack, which stays bf16 and is
-    sampled under the f32 policy; other outputs pass through."""
+    sampled under the f32 policy; other outputs pass through.  BriVIS's
+    metrics add ``bc_loss`` and ``htm_loss``; ``brivis_image_matcher``
+    picks its matcher's source."""
     name = cfg.model.meta_architecture
     if name not in _ARCHS:
         raise NotImplementedError(f"the {name!r} loss is not ported yet (ROADMAP.md)")
     compute_losses = _ARCHS[name][1]
+    extra_metrics = ()
+    if name == "BriVIS":
+        compute_losses = functools.partial(compute_losses, image_matcher=brivis_image_matcher)
+        extra_metrics = ("bc_loss", "htm_loss")
     online = is_online(cfg)
     amp = cfg.solver.amp
     to_bf16 = {n for n, p in model.named_parameters()
@@ -123,12 +136,15 @@ def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
             apply = {n: (p.to(torch.bfloat16) if n in to_bf16 else p)
                      for n, p in params.items()}
         out = torch.func.functional_call(model, apply, (frames, t, batch["text_feats"]))
-        out = {k: (v.float() if isinstance(v, torch.Tensor)
+        # the frame decoder's mask features feed BriVIS's resampler, no loss:
+        # no f32 copy of them
+        out = {k: (v.float() if isinstance(v, torch.Tensor) and k != "mask_feats"
                    and not (amp and "masks_all" in k) else v)
                for k, v in out.items()}
         losses = compute_losses(generator, out, batch["targets"], cfg.model,
                                 num_text_classes, online, draw_points)
-        metrics = {k: losses[k].sum() for k in ("loss_ce", "loss_mask", "loss_dice")}
+        metrics = {k: losses[k].sum()
+                   for k in ("loss_ce", "loss_mask", "loss_dice", *extra_metrics)}
         return losses["total"], metrics
 
     return loss_fn
@@ -137,7 +153,8 @@ def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
 def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
                      device="cuda", draw_points=sorted_uniform_points) -> TrainStep:
     """Returns step(batch, generator=None) -> metrics (``total_loss``,
-    ``loss_ce``, ``loss_mask``, ``loss_dice``, ``grad_norm``).
+    ``loss_ce``, ``loss_mask``, ``loss_dice``, ``grad_norm``; BriVIS's
+    ``bc_loss`` and ``htm_loss``).
 
     The step's ``state`` (``TrainState``: the step count, the model's f32
     parameters as masters and the AdamW state) is updated in place; frozen
@@ -145,7 +162,8 @@ def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
     generator the points come from a stream seeded by (``cfg.seed``, step).
     Under a process group the batch is this process's slice of the global
     batch and the metrics are the global batch's.  The model is moved to
-    ``device``; the batch must lie there too."""
+    ``device``; the batch must lie there too.  BriVIS's matcher takes the
+    frozen image outputs; ``use_brivis_matcher`` switches it."""
     device = resolve_device(device)
     model.to(device).train()
     labels = config_labels(cfg, model)
@@ -159,11 +177,21 @@ def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
     return TrainStep(loss_fn, TrainState(model, opt), cfg.seed)
 
 
+def use_brivis_matcher(step: TrainStep, cfg: Config, num_text_classes: int,
+                       image_matcher: bool) -> None:
+    """Switch a BriVIS step's matcher source: the frozen image outputs, or
+    the resampler's last layer (JAX ``train_net.py:292-299``, from half of
+    ``solver.max_iter``)."""
+    step.loss_fn = make_loss_fn(cfg, step.state.model, num_text_classes,
+                                brivis_image_matcher=image_matcher)
+
+
 def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
     """Returns f(frames (T, H, W, 3), text_feats (K, D)) -> top-k dict for one
     video window (B = 1).  Runs on the model's device; the inputs are moved
     there.  Online (frame-decoder) eval: ``build_model`` refuses the video
-    decoder."""
+    decoder; BriVIS's decoder is the frame one, so it takes this branch, as
+    in the JAX package."""
     topk = cfg.model.test.topk_per_video
     model = eval_model(model)
 

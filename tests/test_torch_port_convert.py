@@ -113,8 +113,9 @@ def test_rejects_missing_extra_and_misshapen_keys(flax_tree):
     bad["non_object_embedding"] = np.zeros((2, D), np.float32)
     with pytest.raises(RuntimeError, match="size mismatch"):
         load_flax_params(train.build_model(cfg, device="cpu"), bad)
-    with pytest.raises(ValueError, match="kernel of rank 3"):
-        params_from_flax({"x": {"kernel": np.zeros((2, 2, 2), np.float32)}})
+    # rank 3 is a 1-D Conv (BriVIS's resampler, tests/test_torch_port_brivis.py)
+    with pytest.raises(ValueError, match="kernel of rank 5"):
+        params_from_flax({"x": {"kernel": np.zeros((2, 2, 2, 2, 2), np.float32)}})
 
 
 def test_seeded_init(flax_tree):

@@ -10,7 +10,9 @@ element) and, after two steps, parameters within 4 * base_lr (Adam moves a
 parameter by about +-lr where its gradient is near zero, so a rounding
 difference can flip the sign of that step).  The eval's video stride and its
 gather on rank 0 give the predictions and metrics of one process (pattern
-``tests/test_engine.py:285-330``).  This module imports no JAX: the ranks
+``tests/test_engine.py:285-330``).  A BriVIS step (test-tiny CLIP, clips of 4
+frames) gives the loss and gradients of one process too: its Brownian pool
+is the global batch's, gathered with the gradient returned to its owner.  This module imports no JAX: the ranks
 import it."""
 
 import dataclasses
@@ -37,6 +39,10 @@ VIDEOS = [(48, 64, 5, 2), (48, 64, 3, 1), (64, 48, 4, 1)]
 CATEGORIES = [{"id": 1, "name": "c1"}, {"id": 2, "name": "c2"}]
 STEPS, WORLD, JOIN_S = 2, 2, 120
 LOSS_RTOL, GRAD_REL_TO_MAX = 1e-5, 1e-5
+# BriVIS: the temporal self-attention's q/k gradients are small differences of
+# large terms (a softmax over 4 frames); the rest of the loss's rounding shows
+# there at 1.2e-5 of the tensor's largest element, elsewhere below 1e-5
+BRIVIS_GRAD_REL_TO_MAX = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,8 +76,23 @@ def tiny_config(root: str, out: str) -> Config:
         output_dir=out)
 
 
-def global_batches():
-    """STEPS global batches of WORLD clips, and the text."""
+def brivis_config() -> Config:
+    """BriVIS over SAN's side adapter on the test-tiny CLIP (4 blocks split
+    at 3), 2 resampler layers, f32."""
+    cfg = tiny_config("", "")
+    m = dataclasses.replace(
+        cfg.model, meta_architecture="BriVIS", freeze_segmenter=True,
+        transformer_decoder=dataclasses.replace(cfg.model.transformer_decoder,
+                                                name="side_adapter_frame"),
+        clip_adapter=dataclasses.replace(cfg.model.clip_adapter, name="side",
+                                         clip_model_name="test-tiny", clip_num_heads=4,
+                                         merge_ids=(1, 2, 3), broken_id=3),
+        resampler=dataclasses.replace(cfg.model.resampler, num_layers=2))
+    return dataclasses.replace(cfg, model=m)
+
+
+def global_batches(t: int = T):
+    """STEPS global batches of WORLD clips of ``t`` frames, and the text."""
     rng = np.random.RandomState(0)
     text = rng.randn(K, D).astype(np.float32)
     text /= np.linalg.norm(text, axis=-1, keepdims=True)
@@ -79,12 +100,12 @@ def global_batches():
     for _ in range(STEPS):
         valid = rng.rand(WORLD, N) > 0.3
         valid[:, 0] = True
-        out.append({"pixels": torch.from_numpy(rng.randn(WORLD, T, H, W, 3).astype(np.float32)),
+        out.append({"pixels": torch.from_numpy(rng.randn(WORLD, t, H, W, 3).astype(np.float32)),
                     "text_feats": torch.from_numpy(text),
                     "targets": ClipTargets(torch.from_numpy(rng.randint(0, K, (WORLD, N))),
-                                           torch.from_numpy(rng.rand(WORLD, N, T, H, W) > 0.7),
+                                           torch.from_numpy(rng.rand(WORLD, N, t, H, W) > 0.7),
                                            torch.from_numpy(valid),
-                                           torch.ones(WORLD, N, T, dtype=torch.bool))})
+                                           torch.ones(WORLD, N, t, dtype=torch.bool))})
     return out
 
 
@@ -95,6 +116,30 @@ def _slice(batch, r: int):
             "targets": ClipTargets(t.labels[s], t.masks[s], t.valid[s], t.frame_valid[s])}
 
 
+def _recording_step(cfg: Config, model, grads):
+    """The model's train step; the reduced gradients of each step go to ``grads``."""
+    step = train.build_train_step(cfg, model, K, device="cpu")
+    opt_step = step.state.opt.step
+
+    def recording(params, g, norm=None):
+        grads.append({n: v.clone() for n, v in g.items()})
+        opt_step(params, g, norm)
+
+    step.state.opt.step = recording
+    return step
+
+
+def brivis_run(rank: int, world: int):
+    """One BriVIS step on this rank's slice of a global batch of clips of 4
+    frames (middle frames 1 or 2): its metrics and reduced gradients."""
+    model = init_params(train.build_model(brivis_config(), device="cpu"), seed=0)
+    grads = []
+    step = _recording_step(brivis_config(), model, grads)
+    batch = global_batches(t=4)[0]
+    metrics = {k: v.item() for k, v in step(batch if world == 1 else _slice(batch, rank)).items()}
+    return {"metrics": metrics, "grads": grads[0]}
+
+
 def run(cfg: Config, rank: int, world: int):
     """Eval from the init, then STEPS train steps on this rank's slice: the
     eval metrics, the metrics and reduced gradients of each step, and the
@@ -102,14 +147,8 @@ def run(cfg: Config, rank: int, world: int):
     model = init_params(train.build_model(cfg, device="cpu"), seed=0)
     text = global_batches()[0]["text_feats"][:len(CATEGORIES)]
     eval_metrics = engine.evaluate_dataset(cfg, model, DATASET, text, device="cpu")
-    step = train.build_train_step(cfg, model, K, device="cpu")
-    grads, opt_step = [], step.state.opt.step
-
-    def recording(params, g, norm=None):
-        grads.append({n: v.clone() for n, v in g.items()})
-        opt_step(params, g, norm)
-
-    step.state.opt.step = recording
+    grads = []
+    step = _recording_step(cfg, model, grads)
     metrics = []
     for batch in global_batches():
         part = batch if world == 1 else _slice(batch, rank)
@@ -128,6 +167,7 @@ def rank_main(init_file: str, rank: int, root: str, info_json: str, result: str)
     dist.init_distributed(f"file://{init_file}", WORLD, rank, device="cpu")
     try:
         out = run(tiny_config(root, os.path.join(root, "out_2ranks")), rank, WORLD)
+        out["brivis"] = brivis_run(rank, WORLD)
     finally:
         torch.distributed.destroy_process_group()
     torch.save(out, result)
@@ -158,6 +198,7 @@ def runs(dataset):
                 procs.append(subprocess.Popen([sys.executable, "-c", code, json.dumps(args)],
                                               cwd=str(REPO), stderr=err))
         one = run(tiny_config(root, os.path.join(root, "out_1rank")), 0, 1)
+        one["brivis"] = brivis_run(0, 1)
         for p in procs:
             try:
                 p.wait(timeout=JOIN_S)
@@ -191,6 +232,27 @@ def test_two_ranks_give_the_loss_and_gradients_of_one(runs):
                     assert err < 1e-5 and g.abs().max().item() < 1e-5, (s, n)
                     continue
                 assert err <= GRAD_REL_TO_MAX * g.abs().max().item(), (s, n, err)
+
+
+def test_two_ranks_give_the_brivis_loss_and_gradients_of_one(runs):
+    """The global Brownian pool: 2 x 8 tracks, each rank's middle frames its
+    slice of the global draw, the gathered gradient summed back to its owner;
+    the frozen stage 1 gets no gradient."""
+    _, one, ranks = runs
+    one = one["brivis"]
+    assert {"bc_loss", "htm_loss"} < set(one["metrics"]) and one["metrics"]["bc_loss"] > 0
+    for k, v in one["metrics"].items():
+        for r in ranks:
+            assert abs(r["brivis"]["metrics"][k] - v) <= LOSS_RTOL * abs(v), k
+    assert all(n.startswith(("resampler.", "brownian_proj.")) for n in one["grads"])
+    assert one["grads"]["brownian_proj.weight"].abs().max() > 0
+    for n, g in one["grads"].items():
+        for r in ranks:
+            err = (r["brivis"]["grads"][n] - g).abs().max().item()
+            if n.endswith("k_proj.bias"):
+                assert err < 1e-5 and g.abs().max().item() < 1e-5, n
+                continue
+            assert err <= BRIVIS_GRAD_REL_TO_MAX * g.abs().max().item(), (n, err)
 
 
 def test_two_ranks_stay_in_step_with_one(runs):

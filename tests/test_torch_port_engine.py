@@ -188,10 +188,11 @@ def test_engine_refuses_what_is_not_ported(setup):
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=lambda x: x,
                                 device="cpu")
-    brivis = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="BriVIS"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        engine.evaluate_dataset(brivis, pm, DATASET, text, device="cpu")
+    # BriVIS is ported (tests/test_torch_port_brivis_engine.py); OpenVIS is not
+    openvis = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, meta_architecture="OpenVISOnline"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        engine.evaluate_dataset(openvis, pm, DATASET, text, device="cpu")
     # SANOnline is ported (tests/test_torch_port_san_engine.py); offline SAN
     # needs the video decoder
     offline_san = dataclasses.replace(cfg, model=dataclasses.replace(

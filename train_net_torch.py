@@ -6,9 +6,13 @@ on the CPU (``--device cpu``) or on N processes over ``torch.distributed``
 (one process a card, NCCL; gloo on the CPU).
 
   * pretrained init from ``model.weights``: a checkpoint directory of the
-    port (its subtrees grafted) or a reference Mask2Former checkpoint
-    (``.pkl``/``.pth``/``.pt``, into ``segmenter``);
-  * training from ``datasets.train`` (``TrainLoader``), a checkpoint every
+    port (its subtrees grafted: BriVIS's stage 2 takes ``segmenter`` and
+    ``clip_adapter`` from a SANOnline run) or a reference Mask2Former
+    checkpoint (``.pkl``/``.pth``/``.pt``, into ``segmenter``); the JAX
+    package's flax ``.msgpack`` is refused (its reader is not ported);
+  * training from ``datasets.train`` (``TrainLoader``; BriVIS's matcher
+    switches from the frozen image outputs to the resampler at half of
+    ``solver.max_iter``, as ``train_net.py:292-299``), a checkpoint every
     ``solver.checkpoint_period`` steps and at the end, ``metrics.jsonl``
     (``StepTimer``); ``--resume`` restores the latest checkpoint of
     ``--weights`` (default ``<output_dir>/checkpoints``);
@@ -62,7 +66,12 @@ from openvis_tpu_torch.models.clip.prompts import get_templates
 from openvis_tpu_torch.models.clip.text_bank import TextEmbeddingBank
 from openvis_tpu_torch.models.clip.tokenizer import SimpleTokenizer
 from openvis_tpu_torch.parallel import dist
-from openvis_tpu_torch.train import build_model, build_train_step, resolve_device
+from openvis_tpu_torch.train import (
+    build_model,
+    build_train_step,
+    resolve_device,
+    use_brivis_matcher,
+)
 from openvis_tpu_torch.utils.profiling import StepTimer, trace
 from openvis_tpu_torch.weights import segmenter_state
 
@@ -123,8 +132,14 @@ def _load_into(model, pretrained, subtree: str = "") -> None:
 def pretrained_init(cfg, model) -> None:
     """``model.weights``: a port checkpoint directory (its subtrees that the
     model has are grafted) or a reference Mask2Former checkpoint (into
-    ``segmenter``)."""
+    ``segmenter``).  A flax ``.msgpack`` (the JAX package's converted
+    weights, BriVIS's recipe default) raises: its reader is not ported."""
     w = cfg.model.weights
+    if w and w.endswith(".msgpack"):
+        raise SystemExit(
+            f"model.weights={w}: a flax .msgpack of the JAX package; the port has no reader "
+            "for it (ROADMAP.md). Set model.weights to a checkpoint directory of the port "
+            "(e.g. a SANOnline run's <output_dir>/checkpoints) or a reference .pkl/.pth")
     if w and os.path.isdir(w):
         pre = load_params_from_checkpoint(w)
         if pre is None:
@@ -205,6 +220,7 @@ def train(args, cfg, model, text_feats, device, ckpt_dir) -> None:
     timer = StepTimer(os.path.join(cfg.output_dir, "metrics.jsonl") if rank == 0 else None,
                       device)
     start = step.state.step
+    brivis = cfg.model.meta_architecture == "BriVIS"
     # a trace of steady steps (past the warm-up) when the run is long enough
     trace_at = start + (10 if solver.max_iter - start > 13 else 0)
     tracing = contextlib.ExitStack()
@@ -214,6 +230,10 @@ def train(args, cfg, model, text_feats, device, ckpt_dir) -> None:
                 tracing.enter_context(trace(args.profile_dir, device, f"trace_rank{rank}"))
             if it == trace_at + 3:
                 tracing.close()
+            if brivis and it == max(start, solver.max_iter // 2):
+                # the matcher's source from half of training on
+                use_brivis_matcher(step, cfg, text_feats.shape[0], image_matcher=False)
+                logger.info("BriVIS matcher: the resampler's last layer from step %d", it)
             t0 = time.perf_counter()
             batch = next(loader)
             wait = time.perf_counter() - t0
