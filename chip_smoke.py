@@ -114,12 +114,33 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      the CLI's stage 2 from phase 13's SAN checkpoint (16 clips of 3 frames,
      2 steps across the matcher switch, a checkpoint whose grafted subtrees
      equal stage 1's), then ``--eval-only``
+  15. OpenVISOnline with its recipe's model
+     (``configs/openvoc_ytvis_coco/openvis_online_R50_bs16_6000st.yaml``: the
+     class-agnostic proposal segmenter; every query's mask cropped and
+     classified by the frozen ViT-B/16 of phase 11's CLIP files): three
+     10x384x640 bf16 windows of bench.py's ``make_openvis_eval`` through the
+     engine's parts, with their split (segmenter, tracking, the crops and
+     their ``roi_crop``s, scores and top-k) and TFLOP/s against FLOPS.json's
+     ``openvis_online_r50_inference``; an f32 window at 192x320 on the card
+     against the CPU (the crops through the test-tiny tower); the train step
+     at 1x2x480x864 (bf16 AMP) and its f32 loss and gradients at 1x2x192x320,
+     card against CPU; the engine with the recipe's eval settings over phase
+     10's dataset and its text bank, K4 on its tracking costs against
+     ``hungarian_plain``; the CLI as users train it (16 clips of 2 frames, 2
+     steps, a checkpoint), then ``--eval-only`` through the tower
+  16. BURST evaluation (``configs/openvoc_ytvis_coco/eval_burst.yaml``:
+     SANOnline over the 482 LVIS classes, HOTA and TrackMAP) over a synthetic
+     BURST dataset (TAO schema; sequences at 720x1280 and 480x640, tracks
+     entering and leaving): the engine's run with the host seconds of HOTA and
+     of TrackMAP, K4 against ``hungarian_plain``; one f32 sequence card
+     against CPU; then ``--eval-only`` on phase 13's SAN checkpoint
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
 engine's whole-video run of phase 10, the CLI's training and eval runs of
 phase 11, the ensemble's run of phase 12, SAN's window, train step,
-engine and CLI runs of phase 13 and BriVIS's of phase 14), its error
+engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15
+and the BURST engine and CLI runs of phase 16), its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -161,7 +182,7 @@ from openvis_tpu_torch.config import load_config
 from openvis_tpu_torch.convert import init_params
 from openvis_tpu_torch.data import catalog, rle, synthetic
 from openvis_tpu_torch.data.loader import TrainLoader
-from openvis_tpu_torch.evals import ytvis_eval
+from openvis_tpu_torch.evals import burst_eval, ytvis_eval
 from openvis_tpu_torch.losses import criterion
 from openvis_tpu_torch.models import clip_adapter
 from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
@@ -380,9 +401,32 @@ BRIVIS_ENGINE_CHECKS = ("decoupled", "raw")
 BRIVIS_TRAINED = ("resampler.short0_conv1.weight", "resampler.long0.q_proj.weight",
                   "resampler.mask_embed.layer2.weight", "resampler.attn_embed.layer0.weight",
                   "brownian_proj.weight")
+# phase 15: OpenVISOnline with its recipe's model (SimpleBaseline's segmenter
+# with the class-agnostic proposal head; at eval every query's mask is cropped
+# and classified by the frozen CLIP ViT-B/16 tower of clip_adapter.weights)
+OPENVIS_CONFIG = os.path.join("configs", "openvoc_ytvis_coco",
+                              "openvis_online_R50_bs16_6000st.yaml")
+OPENVIS_CLI_STEPS = 2
+# the window card against CPU in f32 runs the test-tiny tower (a ViT-B/16 on
+# 200 crops in f32 would take minutes on the CPU), held to phase 7's bounds
+OPENVIS_CHECK_CLIP = "test-tiny"
+# phase 16: BURST evaluation (HOTA and TrackMAP over its 482 LVIS classes) of
+# SANOnline with eval_burst.yaml's settings, over a synthetic BURST (TAO
+# schema) dataset: sequences at TAO's common 720x1280 and 480x640, tracks
+# that enter and leave
+BURST_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "eval_burst.yaml")
+BURST_DATASET = "synthetic_burst_val"
+BURST_SEQUENCES = ((720, 1280, 24, 4), (480, 640, 30, 3), (720, 1280, 12, 2))
+BURST_CHECK_SEQUENCE = (192, 320, 7, 3)   # card against CPU, f32, windows of 4
+
+
+_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1071,8 +1115,8 @@ def _full_config(**solver):
         solver=dataclasses.replace(cfg.solver, **solver))
 
 
-def _text(rng, dim=TEXT_DIM):
-    text = rng.randn(K_CLASSES, dim).astype(np.float32)
+def _text(rng, dim=TEXT_DIM, k=K_CLASSES):
+    text = rng.randn(k, dim).astype(np.float32)
     return text / np.linalg.norm(text, axis=-1, keepdims=True)
 
 
@@ -1171,22 +1215,24 @@ def phase_slice_vs_plain():
     _hold_window_to_plain("slice_kernels_vs_plain", cfg, cpu_model, FRAME_H, FRAME_W)
 
 
-def _hold_window_to_plain(phase, cfg, cpu_model, h, w):
+def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=None):
     """Phase 7's comparison: one f32 window of CHECK_FRAMES frames at (h, w)
     through ``make_eval_fn`` of ``cpu_model`` on the CPU (plain) and of a copy
-    on the card (kernels), TF32 off."""
+    on the card (kernels), TF32 off.  ``make_eval(model, device)``: another
+    window function (frames, text) -> top-k; ``text_dim``: its text width."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    make_eval = make_eval or (lambda model, device: train.make_eval_fn(cfg, model))
     cpu_model = cpu_model.eval()
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
     rng = np.random.RandomState(SEED + 1)
     frames = torch.from_numpy(rng.randn(CHECK_FRAMES, h, w, 3).astype(np.float32))
-    text = torch.from_numpy(_text(rng))
+    text = torch.from_numpy(_text(rng) if text_dim is None else _text(rng, text_dim))
     t0 = time.perf_counter()
-    ref = train.make_eval_fn(cfg, cpu_model)(frames, text)
+    ref = make_eval(cpu_model, "cpu")(frames, text)
     cpu_s = time.perf_counter() - t0
     reset_counts()
-    got = {k: v.cpu() for k, v in train.make_eval_fn(cfg, gpu_model)(
+    got = {k: v.cpu() for k, v in make_eval(gpu_model, DEVICE)(
         frames.to(DEVICE), text.to(DEVICE)).items()}
     launches = read_counts()
     q = cfg.model.transformer_decoder.num_queries
@@ -1418,32 +1464,38 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params, t=TRAIN_T):
 
 class EngineSpans:
     """Wraps the eval engine's stages for one ``evaluate_dataset`` run: host
-    seconds of the mapper (``data``), of the evaluator's ``process`` and, in
-    it, of resize + threshold + the masks' copy (``threshold``) and of the RLE
-    encoding (``rle``), and of ``_finalize``; CUDA events around each model
-    window and around tracking + top-k (device time); the frames; and each
-    prediction with the track (frame-0 query) it came from and each video's
-    track indices (T, Q), left on the device until ``track_indices``.  With
-    the CLIP ensemble: CUDA events around each video's ensemble (tracking,
-    CLIP crop scores, the ensemble and top-k), around its CLIP crop scoring
-    and around each ``roi_crop``."""
+    seconds of the mapper (``data``), of the evaluator's ``process`` (or the
+    BURST evaluator's ``process_video``) and, in it, of resize + threshold +
+    the masks' copy (``threshold``) and of the RLE encoding (``rle``), and of
+    ``_finalize`` (with BURST: its ``evaluate``, and in it ``hota_for_class``)
+    and, in the evaluation, of the RLE strings' decoding and of
+    ``YTVOSEval.accumulate`` (the IoUs and the matching);
+    CUDA events around each model window and around tracking + top-k (device
+    time); the frames; and each prediction with the track (frame-0 query) it
+    came from and each video's track indices (T, Q), left on the device until
+    ``track_indices``.  With the mask-crop CLIP scoring (SimpleBaseline's
+    ensemble, OpenVIS): CUDA events around each video's scoring (tracking,
+    CLIP crop scores, the scores and top-k), around its CLIP crop scoring and
+    around each ``roi_crop``."""
 
     PATCHED = ((engine, "test_videos"), (engine, "make_window_fn"),
                (engine, "make_postprocess_fn"), (engine, "_finalize"),
-               (ytvis_eval, "threshold_masks"), (rle, "encode_transposed"),
-               (ytvis_eval.YTVISEvaluator, "process"), (engine, "track_by_embeds"),
-               (engine, "make_ensemble_fn"), (clip_towers, "clip_crop_scores"),
-               (clip_adapter, "roi_crop"))
+               (ytvis_eval, "threshold_masks"), (burst_eval, "threshold_masks"),
+               (rle, "encode_transposed"), (ytvis_eval.YTVISEvaluator, "process"),
+               (burst_eval.BURSTEvaluator, "process_video"), (engine, "track_by_embeds"),
+               (engine, "make_ensemble_fn"), (engine, "make_openvis_fn"),
+               (clip_towers, "clip_crop_scores"), (clip_adapter, "roi_crop"),
+               (burst_eval.BURSTEvaluator, "evaluate"), (burst_eval, "hota_for_class"),
+               (rle, "string_to_counts"), (ytvis_eval.YTVOSEval, "accumulate"))
 
     def __enter__(self):
         self.host = collections.Counter()
         self.events = {"windows": [], "tracking_topk": [], "ensemble_topk": [],
-                       "clip_crops": [], "roi_crop": []}
+                       "openvis_topk": [], "clip_crops": [], "roi_crop": []}
         self.frames, self.preds = 0, []   # preds: (video, track, category, score, segs)
         self._tracks = []
-        self._orig = [getattr(obj, name) for obj, name in self.PATCHED]
-        (videos, window_fn, post_fn, finalize, threshold, encode, process, track, ensemble_fn,
-         crop_scores, roi_crop) = self._orig
+        self._orig = {key: getattr(*key) for key in self.PATCHED}
+        orig = {name: fn for (_, name), fn in self._orig.items()}
 
         def host_timed(key, fn):
             def timed(*args, **kwargs):
@@ -1471,7 +1523,7 @@ class EngineSpans:
             return made
 
         def test_videos(*args):
-            items = videos(*args)
+            items = orig["test_videos"](*args)
             while True:
                 t0 = time.perf_counter()
                 try:
@@ -1483,32 +1535,51 @@ class EngineSpans:
                 self.frames += sample["pixels"].shape[0]
                 yield rec, sample
 
-        def record_process(ev, video_id, topk_out, *args, **kwargs):
-            n0 = len(ev.predictions)
-            host_timed("process", process)(ev, video_id, topk_out, *args, **kwargs)
-            kept = [q for q, sc in zip(topk_out["query_idx"].tolist(),
-                                       topk_out["scores"].float().tolist())
-                    if sc > ev.score_threshold]
-            for q, pred in zip(kept, ev.predictions[n0:]):
-                self.preds.append((video_id, q, pred["category_id"], pred["score"],
-                                   pred["segmentations"]))
+        def recording(process):
+            def record_process(ev, video_id, topk_out, *args, **kwargs):
+                n0 = len(ev.predictions)
+                host_timed("process", process)(ev, video_id, topk_out, *args, **kwargs)
+                threshold = getattr(ev, "score_threshold", None)
+                kept = [q for q, sc in zip(topk_out["query_idx"].tolist(),
+                                           topk_out["scores"].float().tolist())
+                        if threshold is None or sc > threshold]
+                # the BURST evaluator keeps no query order (it drops empty tracks)
+                for pred in ev.predictions[n0:]:
+                    q = kept.pop(0) if threshold is not None else None
+                    self.preds.append((video_id, q, pred["category_id"], pred["score"],
+                                       pred["segmentations"]))
+            return record_process
 
         def record_track(embeds, *args, **kwargs):
-            indices = track(embeds, *args, **kwargs)
+            indices = orig["track_by_embeds"](embeds, *args, **kwargs)
             self._tracks.append(indices[0])
             return indices
 
-        patches = (test_videos, event_timed("windows", window_fn),
-                   event_timed("tracking_topk", post_fn), host_timed("finalize", finalize),
-                   host_timed("threshold", threshold), host_timed("rle", encode),
-                   record_process, record_track, event_timed("ensemble_topk", ensemble_fn),
-                   events_around("clip_crops", crop_scores), events_around("roi_crop", roi_crop))
-        for (obj, name), fn in zip(self.PATCHED, patches):
-            setattr(obj, name, fn)
+        patches = {
+            "test_videos": test_videos,
+            "make_window_fn": event_timed("windows", orig["make_window_fn"]),
+            "make_postprocess_fn": event_timed("tracking_topk", orig["make_postprocess_fn"]),
+            "_finalize": host_timed("finalize", orig["_finalize"]),
+            "threshold_masks": host_timed("threshold", orig["threshold_masks"]),
+            "encode_transposed": host_timed("rle", orig["encode_transposed"]),
+            "process": recording(orig["process"]),
+            "process_video": recording(orig["process_video"]),
+            "track_by_embeds": record_track,
+            "make_ensemble_fn": event_timed("ensemble_topk", orig["make_ensemble_fn"]),
+            "make_openvis_fn": event_timed("openvis_topk", orig["make_openvis_fn"]),
+            "clip_crop_scores": events_around("clip_crops", orig["clip_crop_scores"]),
+            "roi_crop": events_around("roi_crop", orig["roi_crop"]),
+            "evaluate": host_timed("burst_evaluate", orig["evaluate"]),
+            "hota_for_class": host_timed("hota", orig["hota_for_class"]),
+            "string_to_counts": host_timed("rle_decode", orig["string_to_counts"]),
+            "accumulate": host_timed("ytvos_accumulate", orig["accumulate"]),
+        }
+        for obj, name in self.PATCHED:
+            setattr(obj, name, patches[name])
         return self
 
     def __exit__(self, *exc):
-        for (obj, name), fn in zip(self.PATCHED, self._orig):
+        for (obj, name), fn in self._orig.items():
             setattr(obj, name, fn)
 
     def device_seconds(self, key) -> float:
@@ -1562,6 +1633,16 @@ def _engine_run(cfg, model, text, device, clip_visual_apply=None):
     return metrics, spans, wall, read_counts()
 
 
+def _engine_warm_up(cfg, model, text, clip_visual_apply=None, dataset=None):
+    """One engine run over the first video of ``dataset`` (ENGINE_DATASET):
+    cuDNN's and cuBLAS's choices, the allocator; then the peak is reset."""
+    engine.evaluate_dataset(dataclasses.replace(cfg, output_dir=cfg.output_dir + "_warm"),
+                            model, dataset or ENGINE_DATASET, text, max_videos=1,
+                            clip_visual_apply=clip_visual_apply, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def _engine_split(spans, wall):
     """The run's seconds by stage (host clock; device stages by CUDA events)."""
     data, process = spans.host["data"], spans.host["process"]
@@ -1574,18 +1655,22 @@ def _engine_split(spans, wall):
         "rle_host": spans.host["rle"],
         "wait_for_topk_host": process - spans.host["threshold"] - spans.host["rle"],
         "finalize_evaluate_host": spans.host["finalize"],
+        "rle_string_decode_host": spans.host["rle_decode"],
+        "ytvos_accumulate_host": spans.host["ytvos_accumulate"],
         "other_host": wall - data - process - spans.host["finalize"],
     }
 
 
-def _engine_expected(cfg, launches):
+def _engine_expected(cfg, launches, videos=None):
     """K1 once an encoder layer a window, K4 once a video of more than one
-    frame, no other kernel."""
-    max_frames = cfg.model.test.max_frames
+    frame, no other kernel; ``videos`` (h, w, frames, instances) default to
+    ENGINE_VIDEOS."""
+    videos = ENGINE_VIDEOS if videos is None else videos
+    window = engine.window_size(cfg)
     enc = cfg.model.pixel_decoder.transformer_enc_layers
     return {**{k: 0 for k in launches},
-            "msda_fwd": enc * sum(-(-t // max_frames) for _, _, t, _ in ENGINE_VIDEOS),
-            "hungarian": sum(t > 1 for _, _, t, _ in ENGINE_VIDEOS)}
+            "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in videos),
+            "hungarian": sum(t > 1 for _, _, t, _ in videos)}
 
 
 def _write_engine_dataset(root):
@@ -2583,8 +2668,8 @@ def phase_san_train_vs_plain(cfg, tree):
 
 def phase_san_engine(card, clip, tree):
     """13.5: the engine with the SAN recipe's eval settings over phase 10's
-    dataset: a run with K4 recorded (the warm-up), then the timed run with
-    its split and peak; K4 on the engine's own costs against
+    dataset: a warm-up over the first video, then the timed run with its
+    split and peak, K4 recorded; K4 on the engine's own costs against
     hungarian_plain.  Returns the launches of the timed run."""
     root = tempfile.mkdtemp(prefix="chip_smoke_san_engine_")
     try:
@@ -2593,11 +2678,9 @@ def phase_san_engine(card, clip, tree):
                           f"output_dir={os.path.join(root, 'out')}")
         model = _san_model(cfg, tree, DEVICE, SEED)
         text = _text(np.random.RandomState(SEED))
+        _engine_warm_up(cfg, model, text)
         with HungarianRecorder() as tracking:
-            _engine_run(cfg, model, text, DEVICE)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
+            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         expected = _engine_expected(cfg, launches)
         finite = all(np.isfinite(v) for v in metrics.values())
@@ -2629,16 +2712,16 @@ def phase_san_engine(card, clip, tree):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_san_cli(card, clip, keep_checkpoints=None):
-    """13.6: the CLI with the SAN recipe as users train it (16 clips of 2
-    frames a step), 3 steps and a checkpoint, then ``--eval-only``; returns
-    the launches of the two runs.  ``keep_checkpoints``: a directory the
-    run's checkpoint directory moves to (phase 14's stage 1)."""
+def _recipe_cli(card, clip, config, steps, label, keep_checkpoints=None):
+    """The CLI with the recipe ``config`` as users train it (16 clips of 2
+    frames a step), ``steps`` steps and a checkpoint, then ``--eval-only``;
+    returns the launches of the two runs.  ``keep_checkpoints``: a directory
+    the run's checkpoint directory moves to."""
     import train_net_torch as cli
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    root = tempfile.mkdtemp(prefix="chip_smoke_san_cli_")
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_cli_")
     saves = []
     orig = cli.save_checkpoint
 
@@ -2654,14 +2737,14 @@ def phase_san_cli(card, clip, keep_checkpoints=None):
         out = os.path.join(root, "out")
         common = _cli_data(root) + [f"model.clip_adapter.weights={clip[0]}",
                                     f"model.clip_adapter.bpe_vocab={clip[1]}",
-                                    f"solver.max_iter={SAN_CLI_STEPS}",
-                                    f"solver.checkpoint_period={SAN_CLI_STEPS}",
+                                    f"solver.max_iter={steps}",
+                                    f"solver.checkpoint_period={steps}",
                                     f"output_dir={out}"]
 
         def run(*flags):
             reset_counts()
             t0 = time.perf_counter()
-            cli.main(["--config-file", SAN_CONFIG, *flags, *common])
+            cli.main(["--config-file", config, *flags, *common])
             torch.cuda.synchronize()
             return time.perf_counter() - t0, read_counts()
 
@@ -2669,13 +2752,13 @@ def phase_san_cli(card, clip, keep_checkpoints=None):
         wall, launches = run()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         lines = _metrics_lines(out)
-        cfg = load_config(SAN_CONFIG, common)
-        expected = _train_launches(cfg, *cfg.input.pad_size, SAN_CLI_STEPS)
+        cfg = load_config(config, common)
+        expected = _train_launches(cfg, *cfg.input.pad_size, steps)
         steps_ms = [r["step_s"] * 1e3 for r in lines]
         waits_ms = [r["data_wait_s"] * 1e3 for r in lines]
         finite = all(np.isfinite(r[k]) for r in lines
                      for k in ("total_loss", "loss_ce", "loss_mask", "loss_dice", "grad_norm"))
-        emit({"phase": "san_cli_train", "config": SAN_CONFIG,
+        emit({"phase": f"{label}_cli_train", "config": config,
               "batch": [cfg.solver.ims_per_batch, cfg.input.sampling_frame_num],
               "points": cfg.model.criterion.train_num_points, "amp": cfg.solver.amp,
               "steps": [r["step"] for r in lines], "ms_per_step": steps_ms,
@@ -2685,11 +2768,11 @@ def phase_san_cli(card, clip, keep_checkpoints=None):
               "peak_mem_gib": peak, "wall_s": wall, "launches": launches,
               "expected_launches": expected, "card": card})
         if launches != expected:
-            raise AssertionError(f"SAN CLI train launches {launches} != {expected}")
-        if [r["step"] for r in lines] != list(range(1, SAN_CLI_STEPS + 1)) or not finite:
-            raise AssertionError(f"the SAN CLI's metrics.jsonl is not {SAN_CLI_STEPS} finite steps")
-        if [s["step"] for s in saves] != [SAN_CLI_STEPS]:
-            raise AssertionError(f"SAN checkpoints saved at {saves}")
+            raise AssertionError(f"{label} CLI train launches {launches} != {expected}")
+        if [r["step"] for r in lines] != list(range(1, steps + 1)) or not finite:
+            raise AssertionError(f"the {label} CLI's metrics.jsonl is not {steps} finite steps")
+        if [s["step"] for s in saves] != [steps]:
+            raise AssertionError(f"{label} checkpoints saved at {saves}")
 
         ckpt_dir = os.path.join(out, "checkpoints")
         wall2, launches2 = run("--eval-only", "--weights", ckpt_dir)
@@ -2697,20 +2780,29 @@ def phase_san_cli(card, clip, keep_checkpoints=None):
         with open(os.path.join(out, f"metrics_{ds}.json")) as f:
             metrics = json.load(f)
         enc = cfg.model.pixel_decoder.transformer_enc_layers
+        window = engine.window_size(cfg)
         expected2 = {**{k: 0 for k in launches2},
-                     "msda_fwd": enc * len(CLI_EVAL_VIDEOS), "hungarian": len(CLI_EVAL_VIDEOS)}
-        emit({"phase": "san_cli_eval", "metrics": metrics, "wall_s": wall2,
+                     "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in CLI_EVAL_VIDEOS),
+                     "hungarian": len(CLI_EVAL_VIDEOS)}
+        emit({"phase": f"{label}_cli_eval", "metrics": metrics, "wall_s": wall2,
               "launches": launches2, "expected_launches": expected2, "card": card})
         if not metrics or not all(np.isfinite(v) for v in metrics.values()):
-            raise AssertionError(f"the SAN CLI's eval wrote {metrics}")
+            raise AssertionError(f"the {label} CLI's eval wrote {metrics}")
         if launches2 != expected2:
-            raise AssertionError(f"SAN CLI eval launches {launches2} != {expected2}")
+            raise AssertionError(f"{label} CLI eval launches {launches2} != {expected2}")
         if keep_checkpoints is not None:
             shutil.move(ckpt_dir, keep_checkpoints)
         return launches, launches2
     finally:
         cli.save_checkpoint = orig
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_san_cli(card, clip, keep_checkpoints=None):
+    """13.6: the CLI with the SAN recipe, SAN_CLI_STEPS steps (``_recipe_cli``);
+    ``keep_checkpoints``: where its checkpoint directory goes (phase 14's
+    stage 1)."""
+    return _recipe_cli(card, clip, SAN_CONFIG, SAN_CLI_STEPS, "san", keep_checkpoints)
 
 
 def phase_san(card, clip, keep_checkpoints=None):
@@ -2988,8 +3080,8 @@ def _brivis_engine_vs_plain(root, cats, clip, tree, resampler):
 def phase_brivis_engine(card, clip, tree):
     """14.5: the engine with the BriVIS recipe's eval settings over phase 10's
     dataset (the temporal resampler over each whole video, padded to the
-    JAX engine's time bucket): a run with K4 recorded (the warm-up), then the
-    timed run with its split and peak; K4 on the engine's own costs against
+    JAX engine's time bucket): a warm-up over the first video, then the timed
+    run with its split and peak, K4 recorded; K4 on the engine's own costs against
     hungarian_plain; then the decoupled and the raw resamplers, one f32
     video each, card against CPU.  Returns the launches of the timed run."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3001,11 +3093,8 @@ def phase_brivis_engine(card, clip, tree):
                              f"output_dir={os.path.join(root, 'out')}")
         model = _san_model(cfg, tree, DEVICE, SEED)
         text = _text(np.random.RandomState(SEED))
-        with HungarianRecorder() as tracking:
-            _engine_run(cfg, model, text, DEVICE)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with BrivisSpans(engine) as stages:
+        _engine_warm_up(cfg, model, text)
+        with HungarianRecorder() as tracking, BrivisSpans(engine) as stages:
             metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         enc = cfg.model.pixel_decoder.transformer_enc_layers
@@ -3174,6 +3263,434 @@ def phase_brivis(card, clip, stage1):
     return launches
 
 
+class OpenvisSpans:
+    """CUDA events around OpenVIS's stages in each window of
+    ``_openvis_window``: the segmenter, tracking (``engine.track_by_embeds``),
+    the CLIP crop scoring (``clip_towers.clip_crop_scores``: the frames'
+    upload, ``roi_crop`` and the tower) and, in it, each ``roi_crop``; the
+    scores and top-k run from the end of the crops to the end of the window."""
+
+    def __init__(self, model):
+        self._targets = {"segmenter": (model.segmenter, "forward"),
+                         "tracking": (engine, "track_by_embeds"),
+                         "crops": (clip_towers, "clip_crop_scores"),
+                         "roi_crop": (clip_adapter, "roi_crop")}
+
+    def __enter__(self):
+        self.events = {k: [] for k in (*self._targets, "windows")}
+        self._orig = {key: getattr(obj, name) for key, (obj, name) in self._targets.items()}
+
+        def around(key, fn):
+            def timed(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return timed
+
+        for key, (obj, name) in self._targets.items():
+            setattr(obj, name, around(key, self._orig[key]))
+        self.window = lambda fn: around("windows", fn)
+        return self
+
+    def __exit__(self, *exc):
+        for key, (obj, name) in self._targets.items():
+            if key == "segmenter":
+                del obj.__dict__[name]  # the class's method again
+            else:
+                setattr(obj, name, self._orig[key])
+
+    def split_ms(self):
+        """Milliseconds of each stage summed over the windows."""
+        torch.cuda.synchronize()
+        out = {k: sum(a.elapsed_time(b) for a, b in self.events[k]) for k in self._targets}
+        out["scores_topk"] = sum(c.elapsed_time(w) for (_, c), (_, w)
+                                 in zip(self.events["crops"], self.events["windows"]))
+        return out
+
+
+def _openvis_config(clip, *overrides):
+    """The OpenVISOnline recipe with the CLIP files ``clip`` (weights, bpe) and
+    ``overrides``."""
+    return load_config(OPENVIS_CONFIG, [f"model.clip_adapter.weights={clip[0]}",
+                                        f"model.clip_adapter.bpe_vocab={clip[1]}", *overrides])
+
+
+def _openvis_window(cfg, model, visual, text):
+    """bench.py's ``make_openvis_eval`` through the engine's own parts: the
+    window's outputs (``engine.make_window_fn``), then ``engine.make_openvis_fn``
+    (tracking once, the masks of all queries aligned, the mask-crop CLIP
+    logits of the frames, averaged over each query's valid frames, the
+    top-k).  f(frames (T, H, W, 3) on the card, the same frames on the host)."""
+    params = dict(model.named_parameters())
+    window_fn = engine.make_window_fn(cfg, model)
+    openvis_fn = engine.make_openvis_fn(cfg, visual, text)
+
+    @torch.inference_mode()
+    def fn(frames, pixels):
+        out = window_fn(params, frames, text)
+        return openvis_fn(out["logits"], out["masks"], out["embeds"], pixels)
+
+    return fn
+
+
+def phase_openvis_window(card, cfg, visual):
+    """15.1: the OpenVISOnline eval window at full width, bf16, three windows
+    of 10x384x640 with K=40 text rows, with its split and TFLOP/s against
+    FLOPS.json's count; returns the launches."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
+        dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    pixels = [rng.randn(t, h, w, 3).astype(np.float32) for _ in range(NUM_WINDOWS)]
+    windows = [torch.from_numpy(x).to(DEVICE, torch.bfloat16) for x in pixels]
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    window = _openvis_window(cfg, model, visual, text)
+    window(windows[0], pixels[0])  # warm-up: cuDNN and cuBLAS choices, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    outs = [window(x, p) for x, p in zip(windows, pixels)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / NUM_WINDOWS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with OpenvisSpans(model) as spans:
+        timed = spans.window(window)
+        for x, p in zip(windows, pixels):
+            timed(x, p)
+    split = {k: v / NUM_WINDOWS for k, v in spans.split_ms().items()}
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"OpenVIS window {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS,
+                "hungarian": NUM_WINDOWS}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "FLOPS.json")) as f:
+        flop = json.load(f)["openvis_online_r50_inference"]["flops"]
+    shape = model_shape(cfg.model.clip_adapter.clip_model_name)
+    crops_flop = vit_flops(shape) * q * t
+    emit({"phase": "openvis_window_full_width", "config": OPENVIS_CONFIG, "dtype": "bfloat16",
+          "windows": NUM_WINDOWS, "frames_per_window": t, "frame_hw": [h, w],
+          "ms_per_window": ms, "frames_per_s": t / (ms / 1e3),
+          "split_ms_per_window": split, "peak_mem_gib": peak,
+          "flops_json_tflop_per_window": flop / 1e12,
+          "tflop_per_s": flop / (ms / 1e3) / 1e12, "bf16_peak_share": flop / (ms / 1e3) / BF16_FLOPS,
+          "crops_per_window": q * t,
+          "tower_tflop_per_s": crops_flop / (split["crops"] - split["roi_crop"]) / 1e9,
+          "valid_queries_scored": [int((o["scores"] > 0).sum()) for o in outs],
+          "launches": launches, "expected_launches": expected, "card": card})
+    if launches != expected:
+        raise AssertionError(f"OpenVIS window launches {launches} != {expected}")
+    return launches
+
+
+def phase_openvis_vs_plain(cfg, root):
+    """15.2: one f32 OpenVIS window at full width at 192x320 on the card
+    (kernels) against the CPU (plain), TF32 off, the crops through the
+    test-tiny tower."""
+    weights = os.path.join(root, "clip_check.pt")
+    torch.save(clip_synthetic.openai_state_dict(OPENVIS_CHECK_CLIP, seed=SEED + 5), weights)
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, test=dataclasses.replace(cfg.model.test, amp=False),
+        clip_adapter=dataclasses.replace(cfg.model.clip_adapter,
+                                         clip_model_name=OPENVIS_CHECK_CLIP, weights=weights)))
+
+    def make_eval(model, device):
+        visual = clip_towers.build_clip_visual(f32, device)
+
+        def fn(frames, text):
+            return _openvis_window(f32, model, visual, text)(frames, frames.cpu().numpy())
+        return fn
+
+    cpu_model = init_params(train.build_model(f32, device="cpu"), seed=SEED + 1)
+    _hold_window_to_plain("openvis_kernels_vs_plain", f32, cpu_model, CHECK_TRAIN_H,
+                          CHECK_TRAIN_W, make_eval, model_shape(OPENVIS_CHECK_CLIP)["embed_dim"])
+
+
+def phase_openvis_train(card, cfg):
+    """15.3: the OpenVIS train step at full width (bench.py's shape), bf16 AMP
+    with f32 masters, class-agnostic; returns the launches."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+    head = model.segmenter.predictor.heads.class_embed.weight
+    before = head.detach().clone()
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    step(batch, gen)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    moved = not torch.equal(head.detach(), before)
+    emit({"phase": "openvis_train_full_width", "dtype": "bf16 AMP, f32 masters",
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "proposal_head_moved": moved, "card": card})
+    if launches != expected:
+        raise AssertionError(f"OpenVIS train-step launches {launches} != {expected}")
+    if not all(np.isfinite(v) for m in values for v in m.values()) or not moved:
+        raise AssertionError("an OpenVIS loss is not finite or the proposal head did not move")
+    return launches
+
+
+def phase_openvis_train_vs_plain(cfg):
+    """15.3b: one f32 OpenVIS train-step loss and gradient, card against CPU."""
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = _offsets_off_centres(
+        init_params(train.build_model(f32, device="cpu"), seed=SEED + 2), SEED + 2)
+    _hold_train_to_plain("openvis_train_kernels_vs_plain", f32, cpu_model,
+                         TRAIN_CHECK_PARAMS + ("segmenter.predictor.heads.class_embed.weight",))
+
+
+def phase_openvis_engine(card, clip, visual):
+    """15.4: the engine with the OpenVIS recipe's eval settings (windows of
+    10, bf16 AMP) over phase 10's dataset, the crops through the recipe's
+    tower and the text bank of its 40 categories: a warm-up over the first
+    video, then the timed run with its split (phase 10's stages, the crops
+    and their roi_crops on the device) and peak, K4 recorded and held against
+    hungarian_plain.  Returns the launches of the timed run."""
+    import train_net_torch as cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_openvis_engine_")
+    try:
+        _, write_s = _write_engine_dataset(root)
+        cfg = _openvis_config(clip, f"datasets.root={root}", f"datasets.test=[{ENGINE_DATASET}]",
+                              f"output_dir={os.path.join(root, 'out')}")
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        t0 = time.perf_counter()
+        text = cli.build_text_bank(cfg, DEVICE).encode(
+            list(catalog.get(ENGINE_DATASET).thing_classes))
+        bank_s = time.perf_counter() - t0
+        _engine_warm_up(cfg, model, text, visual)
+        with HungarianRecorder() as tracking:
+            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = _engine_expected(cfg, launches)
+        finite = all(np.isfinite(v) for v in metrics.values())
+        plain = _plain_assignments(tracking.costs)
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        q = cfg.model.transformer_decoder.num_queries
+        shape = model_shape(cfg.model.clip_adapter.clip_model_name)
+        crops = q * spans.frames
+        clip_s = spans.device_seconds("clip_crops")
+        split = {**_engine_split(spans, wall),
+                 "openvis_tracking_clip_topk_device": spans.device_seconds("openvis_topk"),
+                 "clip_crops_device": clip_s, "roi_crop_device": spans.device_seconds("roi_crop"),
+                 "text_bank_host": bank_s}
+        emit({"phase": "openvis_engine_full_width", "config": OPENVIS_CONFIG,
+              "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+              "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
+              "window": engine.window_size(cfg), "metrics": metrics, "metrics_finite": finite,
+              "predictions": len(spans.preds), "launches": launches,
+              "expected_launches": expected, "frames": spans.frames, "wall_s": wall,
+              "frames_per_s": spans.frames / wall, "split_s": split, "peak_mem_gib": peak,
+              "crops": crops, "clip_tflop_per_s": crops * vit_flops(shape) / clip_s / 1e12,
+              "k4_problems": len(plain), "k4_equal_to_plain": not differ,
+              "k4_problems_differing": differ, "dataset_write_s": write_s, "card": card})
+        if launches != expected:
+            raise AssertionError(f"OpenVIS engine launches {launches} != {expected}")
+        if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+            raise AssertionError(f"OpenVIS engine metrics {metrics}, {len(spans.preds)} predictions")
+        if len(spans.events["openvis_topk"]) != len(ENGINE_VIDEOS) or not spans.events["roi_crop"]:
+            raise AssertionError("the engine did not score the crops with CLIP")
+        if differ or len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"K4 on the OpenVIS engine's costs differs from hungarian_plain: "
+                                 f"{differ}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_openvis(card, clip):
+    """Phase 15: OpenVISOnline with the recipe's model and its CLIP tower (a
+    random ViT-B/16 in OpenAI's layout from ``clip``); returns its paths'
+    launch counts by name."""
+    cfg = _openvis_config(clip)
+    visual = clip_towers.build_clip_visual(cfg, DEVICE)
+    launches = {"openvis_eval": phase_openvis_window(card, cfg, visual)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_openvis_")
+    try:
+        phase_openvis_vs_plain(cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches["openvis_train"] = phase_openvis_train(card, cfg)
+    phase_openvis_train_vs_plain(cfg)
+    launches["openvis_engine"] = phase_openvis_engine(card, clip, visual)
+    del visual
+    torch.cuda.empty_cache()
+    launches["openvis_cli_train"], launches["openvis_cli_eval"] = _recipe_cli(
+        card, clip, OPENVIS_CONFIG, OPENVIS_CLI_STEPS, "openvis")
+    return launches
+
+
+def _burst_config(clip, root, name, *overrides):
+    """eval_burst.yaml (the SAN recipe on BURST) over the dataset ``name`` under
+    ``root``, with the CLIP files ``clip``."""
+    return load_config(BURST_CONFIG, [f"model.clip_adapter.weights={clip[0]}",
+                                      f"model.clip_adapter.bpe_vocab={clip[1]}",
+                                      f"datasets.root={root}", f"datasets.test=[{name}]",
+                                      f"output_dir={os.path.join(root, name)}", *overrides])
+
+
+def _burst_engine_vs_plain(root, clip, tree):
+    """16.2: one short f32 BURST sequence through SAN's engine and the BURST
+    evaluator on the card (kernels) and on the CPU (plain), from one model,
+    held to phase 10's f32 bounds."""
+    name = BURST_DATASET + "_check"
+    catalog.register(dataclasses.replace(synthetic.write_burst_dataset(
+        root, "burst_check", [BURST_CHECK_SEQUENCE], seed=SEED + 3), name=name))
+    h, w = BURST_CHECK_SEQUENCE[:2]
+    base = _burst_config(clip, root, name, "model.test.amp=false",
+                         "model.test.window_inference=true",
+                         f"model.test.window_size={ENGINE_CHECK_WINDOW}",
+                         f"input.min_size_test={h}", f"input.pad_size=[{h},{w}]")
+    model = _san_model(base, tree, "cpu", SEED + 3)
+    text = _text(np.random.RandomState(SEED + 3), k=len(catalog.get(name).thing_classes))
+    runs = {}
+    for device in ("cpu", DEVICE):
+        cfg = dataclasses.replace(base, output_dir=os.path.join(root, f"burst_check_{device}"))
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = engine.evaluate_dataset(cfg, model, name, text, device=device)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(cfg.output_dir, f"results_{name}.json")) as f:
+            runs[device] = (metrics, json.load(f), seconds, read_counts())
+    (m_ref, p_ref, s_ref, _), (m_got, p_got, s_got, launches) = runs["cpu"], runs[DEVICE]
+    same = [p["category_id"] for p in p_got] == [p["category_id"] for p in p_ref]
+    # a frame present on one side only: its mask is at most twice min_area
+    # (a few pixels at the > 0 threshold may cross the rule's line)
+    one_sided = [rle.area(x or y) for a, b in zip(p_got, p_ref)
+                 for x, y in zip(a["segmentations"], b["segmentations"])
+                 if (x is None) != (y is None)]
+    same = same and all(area <= 2 * 20 for area in one_sided)
+    score_err = max((abs(a["score"] - b["score"]) for a, b in zip(p_got, p_ref)), default=0.0)
+    agree = min((float((rle.decode(x) == rle.decode(y)).mean())
+                 for a, b in zip(p_got, p_ref)
+                 for x, y in zip(a["segmentations"], b["segmentations"]) if x is not None and
+                 y is not None), default=1.0)
+    metric_err = max(abs(m_got[k] - m_ref[k]) for k in m_ref)
+    emit({"phase": "burst_kernels_vs_plain", "dtype": "float32", "tf32": False,
+          "sequence_hwtn": BURST_CHECK_SEQUENCE, "window": ENGINE_CHECK_WINDOW,
+          "predictions": [len(p_got), len(p_ref)], "categories_equal": same,
+          "frames_present_on_one_side": one_sided,
+          "max_abs_score_err": score_err, "min_mask_agreement": agree,
+          "max_abs_metric_err": metric_err, "metrics_kernel": m_got, "metrics_plain": m_ref,
+          "kernel_launches": launches, "seconds_card_cpu": [s_got, s_ref],
+          "tol": {"score_atol": ENGINE_F32_SCORE_ATOL, "mask_agree": ENGINE_F32_MASK_AGREE,
+                  "metric_atol": ENGINE_F32_METRIC_ATOL}})
+    if not (same and len(p_got) == len(p_ref) and score_err <= ENGINE_F32_SCORE_ATOL
+            and agree >= ENGINE_F32_MASK_AGREE and metric_err <= ENGINE_F32_METRIC_ATOL):
+        raise AssertionError("the BURST engine on the card disagrees with the engine on the CPU")
+    if launches["msda_fwd"] == 0 or launches["hungarian"] == 0:
+        raise AssertionError(f"the card's BURST engine run skipped a kernel: {launches}")
+
+
+def phase_burst(card, clip, stage1):
+    """Phase 16: BURST evaluation of SANOnline (eval_burst.yaml) over a
+    synthetic BURST dataset written from the seed: a warm-up over the first
+    sequence, then the timed engine run (HOTA, DetA, AssA, mAP; the host
+    seconds of HOTA and of TrackMAP; K4 recorded and held against
+    hungarian_plain); one f32 sequence card against CPU; then
+    ``train_net_torch.py --eval-only`` with eval_burst.yaml on phase 13's SAN
+    checkpoint ``stage1``.  Returns the launches of the engine's and the CLI's
+    runs."""
+    import train_net_torch as cli
+
+    tree = cli.read_clip(_san_config(clip))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_burst_")
+    try:
+        t0 = time.perf_counter()
+        info = synthetic.write_burst_dataset(root, "burst", BURST_SEQUENCES, seed=SEED)
+        catalog.register(dataclasses.replace(info, name=BURST_DATASET))
+        write_s = time.perf_counter() - t0
+        cfg = _burst_config(clip, root, BURST_DATASET)
+        model = _san_model(cfg, tree, DEVICE, SEED)
+        k = len(info.thing_classes)
+        text = _text(np.random.RandomState(SEED), k=k)
+        _engine_warm_up(cfg, model, text, dataset=BURST_DATASET)
+        reset_counts()
+        with HungarianRecorder() as tracking, EngineSpans() as spans:
+            t0 = time.perf_counter()
+            metrics = engine.evaluate_dataset(cfg, model, BURST_DATASET, text, device=DEVICE)
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = _engine_expected(cfg, launches, BURST_SEQUENCES)
+        finite = all(np.isfinite(v) for v in metrics.values())
+        plain = _plain_assignments(tracking.costs)
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        hota_s = spans.host["hota"]
+        emit({"phase": "burst_engine_full_width", "config": BURST_CONFIG,
+              "dataset": "synthetic BURST (TAO schema), 482 LVIS classes",
+              "sequences_hwtn": BURST_SEQUENCES, "classes": k,
+              "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
+              "window": engine.window_size(cfg), "metrics": metrics, "metrics_finite": finite,
+              "tracks_predicted": len(spans.preds), "launches": launches,
+              "expected_launches": expected, "frames": spans.frames, "wall_s": wall,
+              "frames_per_s": spans.frames / wall, "split_s": _engine_split(spans, wall),
+              "hota_host_s": hota_s, "trackmap_host_s": spans.host["burst_evaluate"] - hota_s,
+              "peak_mem_gib": peak, "k4_problems": len(plain), "k4_equal_to_plain": not differ,
+              "k4_problems_differing": differ, "dataset_write_s": write_s, "card": card})
+        if launches != expected:
+            raise AssertionError(f"BURST engine launches {launches} != {expected}")
+        if not finite or set(metrics) < {"HOTA", "DetA", "AssA", "mAP"} or not spans.preds:
+            raise AssertionError(f"BURST engine metrics {metrics}, {len(spans.preds)} tracks")
+        if differ or len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"K4 on the BURST engine's costs differs from hungarian_plain: "
+                                 f"{differ}")
+        del model
+        _burst_engine_vs_plain(root, clip, tree)
+
+        out = os.path.join(root, "cli")
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--config-file", BURST_CONFIG, "--eval-only", "--weights", stage1,
+                  f"model.clip_adapter.weights={clip[0]}", f"model.clip_adapter.bpe_vocab={clip[1]}",
+                  f"datasets.root={root}", f"datasets.test=[{BURST_DATASET}]",
+                  f"output_dir={out}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = read_counts()
+        with open(os.path.join(out, f"metrics_{BURST_DATASET}.json")) as f:
+            cli_metrics = json.load(f)
+        emit({"phase": "burst_cli_eval", "config": BURST_CONFIG, "weights": "phase 13's SAN "
+              "checkpoint", "metrics": cli_metrics, "wall_s": cli_s, "launches": cli_launches,
+              "expected_launches": expected, "card": card})
+        if set(cli_metrics) < {"HOTA", "DetA", "AssA", "mAP"} or \
+                not all(np.isfinite(v) for v in cli_metrics.values()):
+            raise AssertionError(f"the BURST CLI eval wrote {cli_metrics}")
+        if cli_launches != expected:
+            raise AssertionError(f"BURST CLI eval launches {cli_launches} != {expected}")
+        return {"burst_engine": launches, "burst_cli_eval": cli_launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -3204,6 +3721,8 @@ def main() -> int:
         stage1 = os.path.join(clip_dir, "san_checkpoints")
         san_launches = phase_san(card, clip, keep_checkpoints=stage1)
         brivis_launches = phase_brivis(card, clip, stage1)
+        openvis_launches = phase_openvis(card, clip)
+        burst_launches = phase_burst(card, clip, stage1)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in cli_recorded.items():
@@ -3227,7 +3746,9 @@ def main() -> int:
                               "cli_eval": cli_eval_launches[name],
                               "ensemble": ensemble_launches[name],
                               **{path: n[name] for path, n in san_launches.items()},
-                              **{path: n[name] for path, n in brivis_launches.items()}},
+                              **{path: n[name] for path, n in brivis_launches.items()},
+                              **{path: n[name] for path, n in openvis_launches.items()},
+                              **{path: n[name] for path, n in burst_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

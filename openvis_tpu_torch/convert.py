@@ -64,27 +64,27 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))  # a writable, contiguous copy
 
 
+# flax's kernel axes -> the port's weight axes: Dense, 1-D Conv, 2-D Conv
+_KERNEL_FROM_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+
+
 def params_from_flax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree -> the port's state_dict."""
+    """Flax parameter tree -> the port's state_dict.  Leaves are numpy arrays
+    or tensors (``utils/flax_msgpack.py`` reads bf16 leaves as tensors)."""
     state: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(np_tree):
         *mods, leaf = path
-        arr = np.asarray(arr)
+        t = arr.detach().cpu() if isinstance(arr, torch.Tensor) else _to_torch(arr)
         if leaf == "kernel":
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 3:
-                arr = arr.transpose(2, 1, 0)
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            else:
-                raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
+            if t.dim() not in _KERNEL_FROM_FLAX:
+                raise ValueError(f"{'/'.join(path)}: kernel of rank {t.dim()}")
+            t = t.permute(_KERNEL_FROM_FLAX[t.dim()])
             leaf = "weight"
         elif leaf == "scale" and not _is_frozen_affine(path):
             leaf = "weight"
         elif leaf == "embedding":
             leaf = "weight"
-        state[".".join([*mods, leaf])] = _to_torch(arr)
+        state[".".join([*mods, leaf])] = t.clone(memory_format=torch.contiguous_format)
     return state
 
 

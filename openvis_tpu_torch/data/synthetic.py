@@ -5,7 +5,10 @@
 ``data/mapper.load_ytvis_records`` reads; ``write_coco_dataset`` writes JPEG
 images and a COCO json (``images``, ``annotations`` with one compressed RLE
 each, ``categories``) in the layout ``data/mapper.load_coco_records`` reads,
-for the COCO pseudo-clips the recipes mix into training.  Each instance is a
+for the COCO pseudo-clips the recipes mix into training; ``write_burst_dataset``
+writes JPEG frames and a BURST (TAO-schema) json (``sequences`` with per-frame
+``{track id: {rle}}`` maps and ``track_category_ids`` of LVIS ids) in the
+layout ``data/mapper.load_burst_records`` reads.  Each instance is a
 rectangle of its own colour (moving across the frames of a video) over a
 smooth background, as in the JAX package's engine tests
 (``tests/test_engine.py``).  No dataset is downloaded: the port's tests and
@@ -20,7 +23,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from openvis_tpu_torch.data import rle
+from openvis_tpu_torch.data import catalog, rle
 from openvis_tpu_torch.data.catalog import DatasetInfo, _id_map, _thing_classes
 
 
@@ -148,3 +151,59 @@ def write_coco_dataset(
         thing_classes=tuple(_thing_classes(categories)), id_map=_id_map(categories),
         kind="coco_clip", eval_type="none",
     )
+
+
+def write_burst_dataset(
+    root: str,
+    name: str,
+    sequences: Sequence[Tuple[int, int, int, int]],
+    seed: int = 0,
+) -> DatasetInfo:
+    """Write ``sequences`` ((height, width, frames, tracks) each) under
+    ``root/name`` in the BURST format and return the dataset's
+    ``DatasetInfo`` (``burst_val``'s 482 LVIS categories, kind and eval type
+    ``burst``; not registered).  Each track is present over a span of frames
+    drawn from the seed (BURST tracks enter and leave) and takes an LVIS
+    category drawn from the whole table."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    table = catalog.get("burst_val")
+    lvis_ids = sorted(table.id_map)
+    image_root = os.path.join(name, "frames")
+    js = {"sequences": []}
+    for si, (h, w, t, n) in enumerate(sequences, start=1):
+        seq, source = f"seq{si}", "YFCC100M"
+        os.makedirs(os.path.join(root, image_root, source, seq), exist_ok=True)
+        boxes = _rectangles(rng, h, w, t, n)
+        colours = rng.randint(0, 256, size=(n, 3))
+        spans = [sorted(rng.randint(0, t, size=2)) for _ in range(n)]
+        base = _background(h, w)
+        paths, segmentations = [], []
+        for f in range(t):
+            img = base + rng.uniform(-8, 8, size=(1, 1, 3))
+            frame = {}
+            for j, box in enumerate(boxes):
+                if not spans[j][0] <= f <= spans[j][1]:
+                    continue
+                y, x, bh, bw = _box_at(box, f, t)
+                img[y:y + bh, x:x + bw] = colours[j]
+                m = np.zeros((h, w), np.uint8)
+                m[y:y + bh, x:x + bw] = 1
+                frame[str(j + 1)] = {"rle": rle.encode(m)["counts"]}
+            fn = f"frame{f:04d}.jpg"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(root, image_root, source, seq, fn), quality=90)
+            paths.append(fn)
+            segmentations.append(frame)
+        js["sequences"].append({
+            "id": si, "width": w, "height": h, "seq_name": seq, "dataset": source,
+            "annotated_image_paths": paths, "segmentations": segmentations,
+            "track_category_ids": {str(j + 1): int(rng.choice(lvis_ids)) for j in range(n)},
+        })
+    json_file = os.path.join(name, "all_classes.json")
+    with open(os.path.join(root, json_file), "w") as fh:
+        json.dump(js, fh)
+    return DatasetInfo(name=name, image_root=image_root, json_file=json_file,
+                       thing_classes=table.thing_classes, id_map=dict(table.id_map),
+                       kind="burst", eval_type="burst")

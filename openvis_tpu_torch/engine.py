@@ -1,11 +1,11 @@
 """Evaluation engine: windowed video inference + evaluator loop.
 
 Port of ``openvis_tpu/engine.py``, the path of the frame-decoder (online)
-SimpleBaseline and SAN: each video runs through the per-frame stack in windows of
-``window_size(cfg)`` frames, the windows' outputs are concatenated over time,
-identity is restored by embedding tracking over the whole video
-(``minvis.py:320-338``), the top-k (query, class) pairs are kept and their
-masks go to the YTVIS evaluator.
+SimpleBaseline, OpenVIS and SAN: each video runs through the per-frame stack
+in windows of ``window_size(cfg)`` frames, the windows' outputs are
+concatenated over time, identity is restored by embedding tracking over the
+whole video (``minvis.py:320-338``), the top-k (query, class) pairs are kept
+and their masks go to the evaluator.
 
 BriVIS (JAX ``_evaluate_brivis_windowed``, ``_evaluate_brivis_raw_windowed``,
 ``engine.py:585-800``): the frozen frame stack runs in windows, its small
@@ -44,15 +44,26 @@ With a CLIP visual tower (``clip_towers.build_clip_visual``) and
 ensemble (JAX ``engine.py:341-356``, ``:457-504``) scores the video: tracking
 once, the masks aligned by track, mask-crop CLIP scores over the real
 frames, the model's own tracked scores, their geometric mean, the top-k of
-the aligned masks.
+the aligned masks.  OpenVISOnline (JAX ``engine.py:340-345``, ``:452-495``)
+needs the tower: its class-agnostic proposals are tracked once, the masks of
+all Q queries aligned by track, and the mask-crop CLIP logits over the real
+frames (against the text rows, no no-object row) averaged over each query's
+valid frames before one softmax replace the model's scores; a query valid in
+no frame scores 0.  That the port runs each window at its real length
+changes nothing here either: tracking is causal and the crops read only the
+real frames.
+
+A dataset whose ``eval_type`` is ``burst`` goes to the BURST evaluator
+(``evals/burst_eval.py``: HOTA and TrackMAP over the class splits), its GT
+tracks read from the BURST json (``data/mapper.load_burst_records``).
 
 Under a process group (``parallel/dist.py``) process p reads and evaluates
 videos p, p + P, ... (``max_videos`` counted globally); rank 0 gathers the
 predictions (``torch.distributed``, no shared file system) and scores them;
 the other processes return ``{}``.
 
-Everything the JAX engine dispatches elsewhere (the offline archs, OpenVIS,
-OV2Seg, BURST) raises ``NotImplementedError`` naming its ROADMAP.md
+Everything the JAX engine dispatches elsewhere (the offline archs and the
+single-shot eval, OV2Seg) raises ``NotImplementedError`` naming its ROADMAP.md
 item.
 """
 
@@ -70,21 +81,24 @@ from torch import nn
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.data import catalog
 from openvis_tpu_torch.data.loader import test_videos
+from openvis_tpu_torch.data.mapper import load_burst_records
+from openvis_tpu_torch.evals.burst_eval import BURSTEvaluator
 from openvis_tpu_torch.evals.ytvis_eval import YTVISEvaluator
+from openvis_tpu_torch.models.clip_adapter import frame_average_scores
 from openvis_tpu_torch.models.meta.simple_baseline import eval_scores
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
 from openvis_tpu_torch.parallel import dist
-from openvis_tpu_torch.train import eval_model, resolve_device
+from openvis_tpu_torch.train import ITEM_OF_ARCH, eval_model, resolve_device
 
 logger = logging.getLogger(__name__)
 
-# the ROADMAP.md queue 1 item that ports each other meta architecture's eval
-_ITEM_OF_ARCH = {"SAN": 8, "OpenVIS": 7, "OpenVISOnline": 7}
-_PORTED_ARCHS = ("SimpleBaselineOnline", "SANOnline", "BriVIS")
+_PORTED_ARCHS = ("SimpleBaselineOnline", "OpenVISOnline", "SANOnline", "BriVIS")
+# offline SimpleBaseline trains, but evaluates through the single-shot eval
+_ITEM_OF_ARCH = {**ITEM_OF_ARCH, "SimpleBaseline": "8.3"}
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item {item})")
 
 
@@ -117,11 +131,12 @@ def verify_expected_results(expected, dataset_name: str, metrics: Dict) -> bool:
     return ok
 
 
-def make_evaluator(info: catalog.DatasetInfo) -> YTVISEvaluator:
+def make_evaluator(info: catalog.DatasetInfo):
     """The dataset's evaluator (Trainer.build_evaluator, reference
-    train_net.py:78-88): the YTVIS COCO-protocol suite."""
+    train_net.py:78-88): HOTA and TrackMAP for BURST datasets, the YTVIS
+    COCO-protocol suite for the rest."""
     if info.eval_type == "burst":
-        raise _not_ported("BURST evaluation", 8)
+        return BURSTEvaluator(class_splits=catalog.burst_class_splits(), dataset_info=info)
     return YTVISEvaluator(info)
 
 
@@ -204,6 +219,33 @@ def make_ensemble_fn(cfg: Config, clip_visual_apply, params: Dict[str, torch.Ten
         scores = eval_scores(apply_track_indices(logits[None], indices))[0]
         scores = clip_towers.apply_clip_ensemble(scores, clip_lg, clip_vd, weight,
                                                  drop_last=crop_has_bg)
+        return inference_video_topk(scores, aligned.transpose(0, 1), topk)
+
+    return fn
+
+
+def make_openvis_fn(cfg: Config, clip_visual_apply, text: torch.Tensor) -> Callable:
+    """f(logits (T, Q, 2), masks (Q, T, h, w), embeds (T, Q, C), pixels (T, H,
+    W, 3) on the host) -> top-k dict of OpenVIS's open-vocabulary inference
+    (openvis.py:110-147, ``:244-281``): tracking once, the masks of all
+    queries aligned by track, the mask-crop CLIP logits over the real frames
+    against ``text`` (no no-object row), their mean over each query's valid
+    frames and one softmax, 0 for a query valid in no frame, the top-k of the
+    aligned masks.  The proposal logits are not read."""
+    from openvis_tpu_torch import clip_towers  # it imports this module's eval_dtype
+
+    topk = cfg.model.test.topk_per_video
+    window = window_size(cfg)
+    score_fn = clip_towers.make_openvis_score_fn(cfg, clip_visual_apply)
+
+    def fn(logits, masks, embeds, pixels):
+        t = embeds.shape[0]
+        indices = track_by_embeds(embeds[None])                        # (1, T, Q)
+        aligned = apply_track_indices(masks.transpose(0, 1)[None], indices)[0]  # (T, Q, h, w)
+        clip_lg, clip_vd = clip_towers.clip_crop_scores(cfg, score_fn, pixels, aligned, text,
+                                                        window, t)
+        scores, qvalid = frame_average_scores(clip_lg, clip_vd, mode="logits_then_softmax")
+        scores = torch.where(qvalid[:, None], scores, 0.0)
         return inference_video_topk(scores, aligned.transpose(0, 1), topk)
 
     return fn
@@ -307,11 +349,16 @@ def evaluate_dataset(
     evaluator's metrics.  Runs on ``device`` (the card unless the caller
     passes ``"cpu"``); the model's parameters are read, never modified.
     ``clip_visual_apply`` (``clip_towers.build_clip_visual``, on the same
-    device) turns on SimpleBaseline's CLIP ensemble where
-    ``clip_adapter.clip_ensemble`` asks for it, as in the JAX engine.  Under a
+    device) is OpenVIS's classifier, which needs it, and turns on
+    SimpleBaseline's CLIP ensemble where ``clip_adapter.clip_ensemble`` asks
+    for it, as in the JAX engine.  Under a
     process group every process calls it; rank 0 returns the metrics of all
     the processes' videos, the others ``{}``."""
     _check_ported(cfg)
+    arch = cfg.model.meta_architecture
+    if arch.startswith("OpenVIS") and clip_visual_apply is None:
+        raise ValueError("OpenVIS's evaluation needs the CLIP visual tower: pass "
+                         "clip_visual_apply (clip_towers.build_clip_visual)")
     device = resolve_device(device)
     evaluator = make_evaluator(catalog.get(dataset_name))
     dtype = eval_dtype(cfg)
@@ -320,12 +367,14 @@ def evaluate_dataset(
     text = torch.as_tensor(text_feats).to(device, dtype)
     window_fn = make_window_fn(cfg, model)
     post_fn = make_postprocess_fn(cfg)
-    video_fn = ensemble_fn = None
-    if cfg.model.meta_architecture == "BriVIS":
+    video_fn = crop_fn = None  # crop_fn: the mask-crop CLIP scoring of a video
+    if arch == "BriVIS":
         video_fn = make_brivis_video_fn(cfg, model, params)
+    elif arch.startswith("OpenVIS"):
+        crop_fn = make_openvis_fn(cfg, clip_visual_apply, text)
     elif (clip_visual_apply is not None and cfg.model.clip_adapter.clip_ensemble
-            and cfg.model.meta_architecture.startswith("SimpleBaseline")):
-        ensemble_fn = make_ensemble_fn(cfg, clip_visual_apply, params, text)
+            and arch.startswith("SimpleBaseline")):
+        crop_fn = make_ensemble_fn(cfg, clip_visual_apply, params, text)
 
     counts = []  # predictions of each video, in this process's order
     with torch.inference_mode():
@@ -345,20 +394,23 @@ def evaluate_dataset(
             masks = torch.cat([p["masks"] for p in parts], dim=1)       # (Q, T, h, w)
             embeds = torch.cat([p["embeds"] for p in parts])            # (T, Q, C)
             del parts
-            if ensemble_fn is None:
+            if crop_fn is None:
                 topk = post_fn(logits, masks, embeds)
             else:
-                topk = ensemble_fn(logits, masks, embeds, pixels)
+                topk = crop_fn(logits, masks, embeds, pixels)
             del logits, masks, embeds
             _process(evaluator, rec, sample, topk, counts)
     return _finalize(cfg, dataset_name, evaluator, counts)
 
 
-def _process(evaluator: YTVISEvaluator, rec, sample, topk, counts: List[int]) -> None:
-    """A video's top-k to the evaluator; its number of predictions to ``counts``."""
+def _process(evaluator, rec, sample, topk, counts: List[int]) -> None:
+    """A video's top-k to the evaluator (JAX ``_emit``); its number of
+    predictions to ``counts``."""
     n = len(evaluator.predictions)
-    evaluator.process(rec["video_id"], topk, sample["image_size"], sample["orig_size"],
-                      sample["pixels"].shape[1:3])
+    emit = (evaluator.process_video if isinstance(evaluator, BURSTEvaluator)
+            else evaluator.process)
+    emit(rec["video_id"], topk, sample["image_size"], sample["orig_size"],
+         sample["pixels"].shape[1:3])
     counts.append(len(evaluator.predictions) - n)
 
 
@@ -372,12 +424,19 @@ def _record_order(parts: List[Tuple[List[Dict], List[int]]]) -> List[Dict]:
             for p in run[j]]
 
 
-def _finalize(cfg: Config, dataset_name: str, evaluator: YTVISEvaluator,
-              counts: List[int]) -> Dict[str, float]:
+def _burst_gt_tracks(info: catalog.DatasetInfo, root: str) -> List[Dict]:
+    """The GT tracks of a BURST dataset, one dict a track (JAX ``engine.py:545-555``)."""
+    return [{"video_id": rec["video_id"], "category_id": ann["category_id"],
+             "segmentations": ann["segmentations"]}
+            for rec in load_burst_records(info, root) for ann in rec["annotations"]]
+
+
+def _finalize(cfg: Config, dataset_name: str, evaluator, counts: List[int]) -> Dict[str, float]:
     """Gather the predictions on rank 0 (in record order, as one process
     makes them; ``counts``: this process's predictions of each of its
     videos), dump them next to the metrics (ytvis_eval.py:136-175) and score
-    them against the dataset's GT json; ``{}`` on the other ranks."""
+    them against the dataset's GT (its json; a BURST dataset's tracks over
+    its LVIS ids); ``{}`` on the other ranks."""
     info = catalog.get(dataset_name)
     if dist.initialized():
         parts = dist.gather_to_rank0((evaluator.predictions, counts))
@@ -391,6 +450,12 @@ def _finalize(cfg: Config, dataset_name: str, evaluator: YTVISEvaluator,
             json.dump(evaluator.predictions, f)
         logger.info("wrote %d predictions to %s", len(evaluator.predictions), path)
 
+    if isinstance(evaluator, BURSTEvaluator):
+        gts = _burst_gt_tracks(info, cfg.datasets.root)
+        if not gts:
+            logger.warning("%s has no GT tracks; writing predictions only", dataset_name)
+            return {"num_predictions": float(len(evaluator.predictions))}
+        return evaluator.evaluate(gts, sorted(info.id_map))
     with open(os.path.join(cfg.datasets.root, info.json_file)) as f:
         gt_json = json.load(f)
     if not gt_json.get("annotations"):

@@ -123,12 +123,29 @@ class YTVOSEval:
         self.video_ids = sorted(
             {k[0] for k in self._gts} | {k[0] for k in self._dts}
         )
+        self._ious: Dict = {}
+
+    def _sorted_dts_and_ious(self, vid, cat):
+        """The (video, category)'s predictions by descending score and their
+        IoUs with its GT (in GT order), computed once: every area range and
+        detection cap reads them."""
+        key = (vid, cat)
+        if key not in self._ious:
+            gts = self._gts[key]
+            dts = sorted(self._dts[key], key=lambda d: -d["score"])
+            ious = np.zeros((len(dts), len(gts)))
+            for di, d in enumerate(dts):
+                for gi, g in enumerate(gts):
+                    ious[di, gi] = video_iou(
+                        d["segmentations"], g["segmentations"], bool(g["iscrowd"])
+                    )
+            self._ious[key] = (dts, ious)
+        return self._ious[key]
 
     def _evaluate_vid_cat(self, vid, cat, area_rng, max_det):
         gts = self._gts[(vid, cat)]
-        dts = sorted(
-            self._dts[(vid, cat)], key=lambda d: -d["score"]
-        )[:max_det]
+        dts, ious = self._sorted_dts_and_ious(vid, cat)
+        dts = dts[:max_det]
         if not gts and not dts:
             return None
         g_ignore = [
@@ -139,13 +156,7 @@ class YTVOSEval:
         order = np.argsort([int(i) for i in g_ignore], kind="stable")
         gts = [gts[i] for i in order]
         g_ignore = [g_ignore[i] for i in order]
-
-        ious = np.zeros((len(dts), len(gts)))
-        for di, d in enumerate(dts):
-            for gi, g in enumerate(gts):
-                ious[di, gi] = video_iou(
-                    d["segmentations"], g["segmentations"], bool(g["iscrowd"])
-                )
+        ious = ious[:len(dts)][:, order]
 
         T = len(self.IOU_THRS)
         dt_m = np.zeros((T, len(dts)), dtype=np.int64) - 1

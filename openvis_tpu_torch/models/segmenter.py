@@ -1,10 +1,11 @@
 """Segmenter: backbone -> pixel decoder -> masked transformer decoder.
 
 Port of ``openvis_tpu/models/segmenter.py:85-153``, the ported routes: ResNet
-backbone, ``msdeform`` pixel decoder and the ``frame_embedding`` decoder, or
-SAN's ``side_adapter_frame`` decoder with the CLIP taps as the pixel
-decoder's ``extra_features``.  Any other route raises
-``NotImplementedError`` (ROADMAP.md, queue 1).  Input is the flattened frame
+backbone, ``msdeform`` pixel decoder and the ``frame_embedding`` decoder,
+OpenVIS's ``frame_proposal`` decoder, or SAN's ``side_adapter_frame``
+decoder with the CLIP taps as the pixel decoder's ``extra_features``.  Any
+other route raises ``NotImplementedError`` (ROADMAP.md, queue 1; the video
+decoders item 8).  Input is the flattened frame
 batch (B*T, H, W, 3) in NHWC, as in the JAX package; the trunk runs NCHW.
 """
 
@@ -22,7 +23,10 @@ from openvis_tpu_torch.models.transformer_decoder import MaskedTransformerDecode
 
 
 # ported decoder name -> head (the frame mode's entries of the JAX _DECODER_KINDS)
-_FRAME_HEADS = {"frame_embedding": "embedding", "side_adapter_frame": "side_adapter"}
+_FRAME_HEADS = {"frame_embedding": "embedding", "frame_proposal": "proposal",
+                "side_adapter_frame": "side_adapter"}
+# the video decoder's names (offline archs): ROADMAP.md queue 1 item 8
+_VIDEO_DECODERS = ("video", "video_embedding", "video_proposal", "side_adapter_video")
 
 
 def _not_ported(what: str, where: str = "queue 1") -> NotImplementedError:
@@ -37,7 +41,7 @@ class Segmenter(nn.Module):
             raise _not_ported(f"backbone {b.name!r}")
         if pd.name != "msdeform":
             raise _not_ported(f"pixel decoder {pd.name!r}")
-        if td.name == "side_adapter_video":  # offline SAN: the video decoder
+        if td.name in _VIDEO_DECODERS:  # the offline archs' video decoder
             raise _not_ported(f"transformer decoder {td.name!r}", "queue 1 item 8")
         if td.name not in _FRAME_HEADS:
             raise _not_ported(f"transformer decoder {td.name!r}")

@@ -1,5 +1,5 @@
-"""Mask2Former masked transformer decoder, frame mode with the embedding and
-the side-adapter heads.
+"""Mask2Former masked transformer decoder, frame mode with the embedding,
+proposal and side-adapter heads.
 
 Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
 ``MultiheadAttention``, the self/cross/FFN layers, ``attn_bias_from_mask_logits``,
@@ -12,14 +12,16 @@ Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
   * masked cross-attention: tokens where the previous prediction's resized
     mask logit is negative (``sigmoid < 0.5``) get an additive ``NEG_INF``
     bias, except for a query whose mask is off everywhere;
-  * heads: ``embedding`` (a 2-layer MLP to the CLIP width, per query) and
-    SAN's ``side_adapter`` (per CLIP head, attention-bias maps
+  * heads: ``embedding`` (a 2-layer MLP to the CLIP width, per query),
+    OpenVIS's ``proposal`` (one Linear to 2 objectness logits,
+    ``frame_mask2former_transformer_decoder.py:199-207``) and SAN's
+    ``side_adapter`` (per CLIP head, attention-bias maps
     ``einsum(attn_embed(x), attn_features)`` over the mask features
     downsampled by 4 and run through three 1x1 convolutions,
     ``side_adapter_frame_...py:48-169``).
 
 Not ported yet: the video mode (ROADMAP.md, queue 1 item 8) and the
-class/proposal/zero-shot/ov2seg heads (queue 1).
+class/zero-shot/ov2seg heads (queue 1).
 """
 
 from __future__ import annotations
@@ -153,7 +155,8 @@ def attn_bias_from_mask_logits(
 class PredictionHeads(nn.Module):
     """decoder_norm -> the head's logits and the 3-layer mask-embed MLP dotted
     with the per-frame mask features.  ``embedding``: a 2-layer MLP to the
-    CLIP width; ``side_adapter``: a 3-layer MLP whose queries dot the
+    CLIP width; ``proposal``: OpenVIS's class-agnostic objectness, one
+    Linear to 2 logits; ``side_adapter``: a 3-layer MLP whose queries dot the
     attention features into per-head bias maps."""
 
     def __init__(self, hidden_dim: int, mask_dim: int, head: str = "embedding",
@@ -163,6 +166,8 @@ class PredictionHeads(nn.Module):
         self.decoder_norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         if head == "embedding":
             self.class_embed = MLP(hidden_dim, clip_dim * 2, clip_dim, 2)
+        elif head == "proposal":
+            self.class_embed = nn.Linear(hidden_dim, 2)
         elif head == "side_adapter":
             self.attn_embed = MLP(hidden_dim, hidden_dim, hidden_dim, 3)
         else:
@@ -176,7 +181,7 @@ class PredictionHeads(nn.Module):
         nH, C, h, w) for ``side_adapter`` -> (embeds (N, Q, D) or biases (N,
         nH, Q, h, w), masks (N, Q, H, W), normed output)."""
         x = amp_norm(self.decoder_norm, output)
-        if self.head == "embedding":
+        if self.head in ("embedding", "proposal"):
             logits = self.class_embed(x)
         else:
             logits = torch.einsum("bqc,bnchw->bnqhw", self.attn_embed(x), attn_features)

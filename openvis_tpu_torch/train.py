@@ -1,10 +1,11 @@
 """Model assembly, the train step and the windowed video eval entry point.
 
-Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), SANOnline and
-BriVIS: ``build_model`` (``:25``), the loss closure ``make_loss_fn`` with its
-AMP rule (``:70-174``), the train step of ``openvis_tpu/parallel/train_step.py``
-(``build_train_step``, one process or one of several over
-``torch.distributed``) and ``make_eval_fn`` (``:177-203``).  BriVIS's loss
+Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), OpenVISOnline,
+SANOnline and BriVIS: ``build_model`` (``:25``), the loss closure
+``make_loss_fn`` with its AMP rule (``:70-174``), the train step of
+``openvis_tpu/parallel/train_step.py`` (``build_train_step``, one process or
+one of several over ``torch.distributed``) and ``make_eval_fn``
+(``:177-203``; OpenVIS evaluates through the engine's CLIP crops).  BriVIS's loss
 takes its assignment from the frozen image outputs or, with
 ``brivis_image_matcher=False`` (the second half of training), from the
 resampler's last layer.
@@ -26,6 +27,7 @@ from torch import nn
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
 from openvis_tpu_torch.models.meta.brivis import BriVISModel, brivis_loss
+from openvis_tpu_torch.models.meta.openvis import OpenVISModel, openvis_loss
 from openvis_tpu_torch.models.meta.san import SANModel, san_loss
 from openvis_tpu_torch.models.meta.simple_baseline import (
     SimpleBaselineModel,
@@ -61,8 +63,14 @@ def _model_device(model: nn.Module) -> torch.device:
 # the ported architectures: their module and their loss (JAX ``train.py:25-60``, ``:70-113``)
 _ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
           "SimpleBaselineOnline": (SimpleBaselineModel, simple_baseline_loss),
+          "OpenVISOnline": (OpenVISModel, openvis_loss),
           "SANOnline": (SANModel, san_loss),
           "BriVIS": (BriVISModel, brivis_loss)}
+# the ROADMAP.md queue 1 item that ports each other architecture: the video
+# decoder and the single-shot eval (8.3), offline SAN (8.4), OV2Seg (8.5),
+# MasQCLIP (8.7)
+ITEM_OF_ARCH = {"VideoMaskFormer": "8.3", "MinVIS": "8.3", "OpenVIS": "8.3", "SAN": "8.4",
+                "OV2Seg": "8.5", "OV2SegOnline": "8.5", "MasQCLIP": "8.7"}
 
 
 def build_model(cfg: Config, device="cuda") -> nn.Module:
@@ -73,10 +81,8 @@ def build_model(cfg: Config, device="cuda") -> nn.Module:
     name = cfg.model.meta_architecture
     if name in _ARCHS:
         return _ARCHS[name][0](cfg.model).to(device)
-    item = " item 8" if name == "SAN" else ""  # offline SAN: the video decoder
-    raise NotImplementedError(
-        f"meta architecture {name!r} is not ported yet (ROADMAP.md, queue 1{item})"
-    )
+    raise NotImplementedError(f"meta architecture {name!r} is not ported yet (ROADMAP.md, "
+                              f"queue 1 item {ITEM_OF_ARCH.get(name, '8')})")
 
 
 def eval_model(model: nn.Module) -> nn.Module:

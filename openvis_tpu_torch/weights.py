@@ -15,8 +15,8 @@ belongs to the JAX package, which the port does not import):
 ``convert_clip`` (``:366``, ``_clip_block`` ``:319``) converts an OpenAI CLIP
 ViT state dict the same way.  The Swin, timm-ResNet and ModifiedResNet CLIP
 readers are not ported yet and raise, naming their ROADMAP.md item.  The JAX
-package's flax ``.msgpack`` files are not read: convert the reference
-checkpoint itself.
+package's flax ``.msgpack`` files, already in the flax layout, are read by
+``utils/flax_msgpack.py``, not here.
 """
 
 from __future__ import annotations
@@ -276,8 +276,8 @@ def convert_timm_resnet(state: Dict[str, np.ndarray], depth: int = 50) -> Dict:
 def load_torch_state(path: str) -> Dict[str, np.ndarray]:
     """A reference checkpoint's tensors as f32 numpy arrays by name."""
     if path.endswith(".msgpack"):
-        raise ValueError(f"{path}: the port does not read flax .msgpack files; pass the "
-                         "reference checkpoint (.pkl, .pth or .pt) itself")
+        raise ValueError(f"{path}: a flax .msgpack tree, not a torch checkpoint; "
+                         "utils/flax_msgpack.read_msgpack reads it")
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             data = pickle.load(f, encoding="latin1")

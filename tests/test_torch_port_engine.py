@@ -34,6 +34,7 @@ from openvis_tpu_torch import config as port_config
 from openvis_tpu_torch import engine, train
 from openvis_tpu_torch.convert import load_flax_params
 from openvis_tpu_torch.data import catalog, synthetic
+from openvis_tpu_torch.evals.burst_eval import BURSTEvaluator
 
 REPO = Path(__file__).resolve().parent.parent
 K, D = 2, 32
@@ -188,19 +189,25 @@ def test_engine_refuses_what_is_not_ported(setup):
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=lambda x: x,
                                 device="cpu")
-    # BriVIS is ported (tests/test_torch_port_brivis_engine.py); OpenVIS is not
-    openvis = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="OpenVISOnline"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        engine.evaluate_dataset(openvis, pm, DATASET, text, device="cpu")
+    # BriVIS and OpenVISOnline are ported (tests/test_torch_port_brivis_engine.py,
+    # tests/test_torch_port_openvis_engine.py); offline OpenVIS (the single-shot
+    # eval) and OV2Seg are not
+    for arch, item in (("OpenVIS", "8.3"), ("OV2SegOnline", "8.5")):
+        unported = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, meta_architecture=arch))
+        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+            engine.evaluate_dataset(unported, pm, DATASET, text, device="cpu")
     # SANOnline is ported (tests/test_torch_port_san_engine.py); offline SAN
     # needs the video decoder
     offline_san = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, meta_architecture="SAN"))
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         engine.evaluate_dataset(offline_san, pm, DATASET, text, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        engine.make_evaluator(catalog.get("burst_val"))
+    # BURST evaluation is ported (tests/test_torch_port_burst.py)
+    burst = engine.make_evaluator(catalog.get("burst_val"))
+    assert isinstance(burst, BURSTEvaluator)
+    assert burst.class_splits == catalog.burst_class_splits()
+    assert len(burst.class_splits["common"]) + len(burst.class_splits["uncommon"]) == 482
 
 
 def test_engine_runs_without_jax_in_fresh_interpreter(setup):

@@ -7,9 +7,9 @@ on the CPU (``--device cpu``) or on N processes over ``torch.distributed``
 
   * pretrained init from ``model.weights``: a checkpoint directory of the
     port (its subtrees grafted: BriVIS's stage 2 takes ``segmenter`` and
-    ``clip_adapter`` from a SANOnline run) or a reference Mask2Former
-    checkpoint (``.pkl``/``.pth``/``.pt``, into ``segmenter``); the JAX
-    package's flax ``.msgpack`` is refused (its reader is not ported);
+    ``clip_adapter`` from a SANOnline run), a reference Mask2Former
+    checkpoint (``.pkl``/``.pth``/``.pt``) or the JAX package's flax
+    ``.msgpack`` (``tools/convert_weights.py m2f``), both into ``segmenter``;
   * training from ``datasets.train`` (``TrainLoader``; BriVIS's matcher
     switches from the frozen image outputs to the resampler at half of
     ``solver.max_iter``, as ``train_net.py:292-299``), a checkpoint every
@@ -17,16 +17,18 @@ on the CPU (``--device cpu``) or on N processes over ``torch.distributed``
     (``StepTimer``); ``--resume`` restores the latest checkpoint of
     ``--weights`` (default ``<output_dir>/checkpoints``);
   * ``--eval-only`` evaluates ``datasets.test`` from ``--weights`` (a
-    checkpoint directory or a reference checkpoint) and writes
+    checkpoint directory, a reference checkpoint into ``segmenter`` or a flax
+    ``.msgpack`` over the whole model) and writes
     ``metrics_<dataset>.json`` beside the engine's ``results_<dataset>.json``;
   * only rank 0 writes checkpoints and metrics; the other processes wait at a
     barrier.
 
 The text bank (``build_text_bank``), SAN's frozen tower
 (``model.clip_adapter.visual``) and, for the SimpleBaseline CLIP ensemble, the
-frozen CLIP visual tower come from ``model.clip_adapter.weights`` (a local
-OpenAI CLIP ``.pt``: a JIT archive or a state dict) and ``bpe_vocab`` (a local
-``bpe_simple_vocab_16e6.txt.gz``).
+frozen CLIP visual tower of OpenVIS's mask-crop scoring and of the SimpleBaseline CLIP
+ensemble come from ``model.clip_adapter.weights`` (a local OpenAI CLIP
+``.pt``: a JIT archive or a state dict; or the JAX package's converted
+``.msgpack``) and ``bpe_vocab`` (a local ``bpe_simple_vocab_16e6.txt.gz``).
 
 Usage:
   python train_net_torch.py --config-file configs/openvoc_ytvis_coco/simplebsl_online_R50_bs8_12000st.yaml
@@ -72,6 +74,7 @@ from openvis_tpu_torch.train import (
     resolve_device,
     use_brivis_matcher,
 )
+from openvis_tpu_torch.utils.flax_msgpack import read_msgpack
 from openvis_tpu_torch.utils.profiling import StepTimer, trace
 from openvis_tpu_torch.weights import segmenter_state
 
@@ -86,7 +89,8 @@ def parse_args(argv=None):
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--weights", default="",
-                   help="a checkpoint directory of the port or a reference .pkl/.pth/.pt")
+                   help="a checkpoint directory of the port, a reference .pkl/.pth/.pt or "
+                        "a flax .msgpack of the JAX package")
     p.add_argument("--max-videos", type=int, default=None, help="eval video cap")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of train steps 10-12 here")
@@ -129,18 +133,54 @@ def _load_into(model, pretrained, subtree: str = "") -> None:
     model.load_state_dict(merge_pretrained(params, pretrained, subtree), strict=True)
 
 
+def load_flax_tree(model, path: str, subtree: str = "") -> None:
+    """The flax ``.msgpack`` ``path`` over the model's parameters, under
+    ``subtree``: the keys the model has override, the others are left out
+    (logged; flax's apply leaves them out too), a misshapen key raises, and a
+    tree that holds none of the model's tensors is refused."""
+    prefix = f"{subtree}." if subtree else ""
+    state = params_from_flax(read_msgpack(path))
+    names = {n for n, _ in model.named_parameters()}
+    known = {k: v for k, v in state.items() if prefix + k in names}
+    if not known:
+        raise SystemExit(f"{path}: no tensor of this flax tree is the model's "
+                         f"{subtree or 'top level'} — refusing to run on random params")
+    if len(known) < len(state):
+        left = sorted(set(state) - set(known))
+        logger.warning("%d tensors of the tree are not the model's, left out: %s%s",
+                       len(left), left[:5], " ..." if len(left) > 5 else "")
+    _load_into(model, known, subtree)
+    logger.info("loaded %d tensors of the flax tree %s into %s", len(known), path,
+                subtree or "the model")
+
+
+def load_weights_file(model, path: str, cfg) -> None:
+    """``--weights`` naming a file: a flax ``.msgpack`` over the whole model
+    (JAX ``train_net.py:223-231``) or a reference Mask2Former checkpoint into
+    ``segmenter``."""
+    if path.endswith(".msgpack"):
+        load_flax_tree(model, path)
+        return
+    _load_into(model, segmenter_state(path, cfg), "segmenter")
+    logger.info("loaded reference weights from %s", path)
+
+
 def pretrained_init(cfg, model) -> None:
     """``model.weights``: a port checkpoint directory (its subtrees that the
-    model has are grafted) or a reference Mask2Former checkpoint (into
-    ``segmenter``).  A flax ``.msgpack`` (the JAX package's converted
-    weights, BriVIS's recipe default) raises: its reader is not ported."""
+    model has are grafted), a reference Mask2Former checkpoint or a flax
+    ``.msgpack`` of the JAX package (both into ``segmenter``, JAX
+    ``train_net.py:207-212``).  A ``.msgpack`` that does not exist (BriVIS's
+    recipe default, which neither CLI writes) raises."""
     w = cfg.model.weights
     if w and w.endswith(".msgpack"):
-        raise SystemExit(
-            f"model.weights={w}: a flax .msgpack of the JAX package; the port has no reader "
-            "for it (ROADMAP.md). Set model.weights to a checkpoint directory of the port "
-            "(e.g. a SANOnline run's <output_dir>/checkpoints) or a reference .pkl/.pth")
-    if w and os.path.isdir(w):
+        if not os.path.isfile(w):
+            raise SystemExit(
+                f"model.weights={w}: no such flax .msgpack (the JAX package's converted "
+                "weights). Set model.weights to a checkpoint directory of the port (e.g. a "
+                "SANOnline run's <output_dir>/checkpoints for BriVIS's stage 2), a reference "
+                ".pkl/.pth or an existing .msgpack")
+        load_flax_tree(model, w, "segmenter")
+    elif w and os.path.isdir(w):
         pre = load_params_from_checkpoint(w)
         if pre is None:
             raise SystemExit(f"model.weights dir {w} has no checkpoint")
@@ -175,8 +215,7 @@ def evaluate(args, cfg, model, bank, device, ckpt_dir) -> None:
         clip_visual_apply = build_clip_visual(cfg, device)
     src = args.weights or ckpt_dir
     if os.path.isfile(src):
-        _load_into(model, segmenter_state(src, cfg), "segmenter")
-        logger.info("loaded reference weights for eval from %s", src)
+        load_weights_file(model, src, cfg)
     else:
         params = load_params_from_checkpoint(src)
         if params is not None:
@@ -184,8 +223,8 @@ def evaluate(args, cfg, model, bank, device, ckpt_dir) -> None:
             logger.info("loaded checkpoint params for eval from %s", src)
         elif args.weights:
             raise SystemExit(f"--eval-only --weights {src}: no checkpoint found (expected a "
-                             "checkpoint dir or a reference .pkl/.pth/.pt) — refusing to "
-                             "evaluate random params")
+                             "checkpoint dir, a reference .pkl/.pth/.pt or a .msgpack) — "
+                             "refusing to evaluate random params")
     all_ok = True
     for ds in cfg.datasets.test:
         names = list(catalog.get(ds).thing_classes)
@@ -207,8 +246,7 @@ def train(args, cfg, model, text_feats, device, ckpt_dir) -> None:
     if args.resume:
         src = args.weights or ckpt_dir
         if os.path.isfile(src):
-            _load_into(model, segmenter_state(src, cfg), "segmenter")
-            logger.info("loaded reference weights from %s", src)
+            load_weights_file(model, src, cfg)
         elif restore_checkpoint(src, step.state) is not None:
             logger.info("resumed at step %d", step.state.step)
     rank = dist.rank()
