@@ -134,13 +134,38 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      entering and leaving): the engine's run with the host seconds of HOTA and
      of TrackMAP, K4 against ``hungarian_plain``; one f32 sequence card
      against CPU; then ``--eval-only`` on phase 13's SAN checkpoint
+  17. the offline (clip-level) archs, the video decoder evaluated single-shot:
+     offline SimpleBaseline-R50
+     (``configs/openvoc_ytvis_coco/simplebsl_R50_bs8_12000st.yaml``) in three
+     timed 10x384x640 bf16 shots with their split (backbone, pixel decoder,
+     video decoder, scores and top-k) and one shot of test.max_frames = 128
+     frames on the 480x864 canvas with its peak; the same model in f32 on 5
+     frames padded to 8 at 192x320, card against CPU; its clip-level train
+     step at 1x2x480x864 (K1-K6 launches, K5's clip-level call shapes, K1-K6
+     on the first step's recorded inputs against the plain versions) and its
+     f32 loss and gradients at 1x2x192x320, card against CPU; the engine over
+     phase 10's dataset through the ensemble (single shots of 40 and 24
+     frames, the 133-frame video in two windows of 128; K1 only). Offline
+     OpenVIS (``openvis_R50_bs16_6000st.yaml``, ``model.weights`` emptied):
+     its train step and engine; the ``frame_proposal`` recipe's engine on
+     phase 10's f32 check video, card against CPU. Offline SAN
+     (``san_R50_bs16_6000st.yaml``): three timed shots with their split
+     (CLIP front, segmenter, CLIP post, top-k), an f32 shot card against CPU,
+     the engine, its train step refused with its named error.
+     VideoMaskFormer and MinVIS: an f32 window each card against CPU, MinVIS
+     through the engine on the check video card against CPU with K4 on its
+     tracking costs against ``hungarian_plain``. The CLI: the offline
+     SimpleBaseline recipe as users train it (8 clips of 2 frames, 2 steps)
+     and ``--eval-only``; offline SAN ``--eval-only`` on phase 13's SANOnline
+     checkpoint
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
 engine's whole-video run of phase 10, the CLI's training and eval runs of
 phase 11, the ensemble's run of phase 12, SAN's window, train step,
-engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15
-and the BURST engine and CLI runs of phase 16), its error
+engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15,
+the BURST engine and CLI runs of phase 16 and the offline paths of phase 17),
+its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
 time, the yardstick library time where one PyTorch call computes the same
@@ -418,6 +443,17 @@ BURST_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "eval_burst.yaml")
 BURST_DATASET = "synthetic_burst_val"
 BURST_SEQUENCES = ((720, 1280, 24, 4), (480, 640, 30, 3), (720, 1280, 12, 2))
 BURST_CHECK_SEQUENCE = (192, 320, 7, 3)   # card against CPU, f32, windows of 4
+# phase 17: the offline (clip-level) archs with their recipes' models: the
+# video decoder over the whole clip (one query set a clip, its cross-attention
+# over the clip's T*h*w tokens a level), evaluated single-shot
+OFFLINE_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "simplebsl_R50_bs8_12000st.yaml")
+OPENVIS_OFFLINE_CONFIG = os.path.join("configs", "openvoc_ytvis_coco",
+                                      "openvis_R50_bs16_6000st.yaml")
+OPENVIS_FRAME_CONFIG = os.path.join("configs", "openvoc_ytvis", "openvis_R50_bs16_6000st.yaml")
+SAN_OFFLINE_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "san_R50_bs16_6000st.yaml")
+OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W = 128, 480, 864  # test.max_frames, the canvas
+OFFLINE_CHECK_T = 5       # 17.2: one shot padded to 8 frames, card against CPU
+OFFLINE_CLI_STEPS = 2
 
 
 _START = time.perf_counter()
@@ -1215,18 +1251,22 @@ def phase_slice_vs_plain():
     _hold_window_to_plain("slice_kernels_vs_plain", cfg, cpu_model, FRAME_H, FRAME_W)
 
 
-def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=None):
-    """Phase 7's comparison: one f32 window of CHECK_FRAMES frames at (h, w)
+def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=None,
+                          frames=CHECK_FRAMES, kernels=("msda_fwd", "hungarian")):
+    """Phase 7's comparison: one f32 window of ``frames`` frames at (h, w)
     through ``make_eval_fn`` of ``cpu_model`` on the CPU (plain) and of a copy
     on the card (kernels), TF32 off.  ``make_eval(model, device)``: another
-    window function (frames, text) -> top-k; ``text_dim``: its text width."""
+    window function (frames, text) -> top-k; ``text_dim``: its text width;
+    ``kernels``: those the card's window must launch (the offline archs
+    track nothing: no K4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     make_eval = make_eval or (lambda model, device: train.make_eval_fn(cfg, model))
     cpu_model = cpu_model.eval()
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
     rng = np.random.RandomState(SEED + 1)
-    frames = torch.from_numpy(rng.randn(CHECK_FRAMES, h, w, 3).astype(np.float32))
+    t = frames
+    frames = torch.from_numpy(rng.randn(t, h, w, 3).astype(np.float32))
     text = torch.from_numpy(_text(rng) if text_dim is None else _text(rng, text_dim))
     t0 = time.perf_counter()
     ref = make_eval(cpu_model, "cpu")(frames, text)
@@ -1236,7 +1276,7 @@ def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=
         frames.to(DEVICE), text.to(DEVICE)).items()}
     launches = read_counts()
     q = cfg.model.transformer_decoder.num_queries
-    _check_outputs(got, q, K_CLASSES, CHECK_FRAMES, h, w, phase)
+    _check_outputs(got, q, K_CLASSES, t, h, w, phase)
     score_err = (got["scores"] - ref["scores"]).abs().max().item()
     same_pairs = bool(torch.equal(got["labels"], ref["labels"])
                       and torch.equal(got["query_idx"], ref["query_idx"]))
@@ -1244,7 +1284,7 @@ def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=
     mask_rel = ((mgot - mref).abs().max() / mref.abs().max()).item()
     sign_agree = ((mgot > 0) == (mref > 0)).float().mean().item()
     emit({"phase": phase, "dtype": "float32", "tf32": False,
-          "frames": CHECK_FRAMES, "frame_hw": [h, w],
+          "frames": t, "frame_hw": [h, w],
           "max_abs_score_err": score_err, "labels_and_query_idx_equal": same_pairs,
           "mask_max_err_rel_to_max": mask_rel, "mask_sign_agree": sign_agree,
           "kernel_launches": launches, "cpu_s": cpu_s,
@@ -1253,7 +1293,7 @@ def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=
     if not (same_pairs and score_err <= SLICE_SCORE_ATOL
             and mask_rel <= SLICE_MASK_REL_TO_MAX and sign_agree >= SLICE_SIGN_AGREE):
         raise AssertionError(f"{phase}: the kernel window disagrees with the plain window")
-    if launches["msda_fwd"] == 0 or launches["hungarian"] == 0:
+    if any(launches[k] == 0 for k in kernels):
         raise AssertionError(f"{phase}: the card's window skipped a kernel: {launches}")
 
 
@@ -1471,7 +1511,8 @@ class EngineSpans:
     and, in the evaluation, of the RLE strings' decoding and of
     ``YTVOSEval.accumulate`` (the IoUs and the matching);
     CUDA events around each model window and around tracking + top-k (device
-    time); the frames; and each prediction with the track (frame-0 query) it
+    time), and around each single shot and single-shot window of the offline
+    archs (their forward, scores and, without the ensemble, top-k); the frames; and each prediction with the track (frame-0 query) it
     came from and each video's track indices (T, Q), left on the device until
     ``track_indices``.  With the mask-crop CLIP scoring (SimpleBaseline's
     ensemble, OpenVIS): CUDA events around each video's scoring (tracking,
@@ -1486,12 +1527,14 @@ class EngineSpans:
                (engine, "make_ensemble_fn"), (engine, "make_openvis_fn"),
                (clip_towers, "clip_crop_scores"), (clip_adapter, "roi_crop"),
                (burst_eval.BURSTEvaluator, "evaluate"), (burst_eval, "hota_for_class"),
-               (rle, "string_to_counts"), (ytvis_eval.YTVOSEval, "accumulate"))
+               (rle, "string_to_counts"), (ytvis_eval.YTVOSEval, "accumulate"),
+               (engine, "make_single_shot_fn"), (engine, "make_single_shot_window_fn"))
 
     def __enter__(self):
         self.host = collections.Counter()
         self.events = {"windows": [], "tracking_topk": [], "ensemble_topk": [],
-                       "openvis_topk": [], "clip_crops": [], "roi_crop": []}
+                       "openvis_topk": [], "clip_crops": [], "roi_crop": [],
+                       "single_shot": [], "single_shot_windows": []}
         self.frames, self.preds = 0, []   # preds: (video, track, category, score, segs)
         self._tracks = []
         self._orig = {key: getattr(*key) for key in self.PATCHED}
@@ -1518,8 +1561,8 @@ class EngineSpans:
             return timed
 
         def event_timed(key, make):
-            def made(*args):
-                return events_around(key, make(*args))
+            def made(*args, **kwargs):
+                return events_around(key, make(*args, **kwargs))
             return made
 
         def test_videos(*args):
@@ -1573,6 +1616,9 @@ class EngineSpans:
             "hota_for_class": host_timed("hota", orig["hota_for_class"]),
             "string_to_counts": host_timed("rle_decode", orig["string_to_counts"]),
             "accumulate": host_timed("ytvos_accumulate", orig["accumulate"]),
+            "make_single_shot_fn": event_timed("single_shot", orig["make_single_shot_fn"]),
+            "make_single_shot_window_fn": event_timed("single_shot_windows",
+                                                      orig["make_single_shot_window_fn"]),
         }
         for obj, name in self.PATCHED:
             setattr(obj, name, patches[name])
@@ -1662,12 +1708,19 @@ def _engine_split(spans, wall):
 
 
 def _engine_expected(cfg, launches, videos=None):
-    """K1 once an encoder layer a window, K4 once a video of more than one
-    frame, no other kernel; ``videos`` (h, w, frames, instances) default to
-    ENGINE_VIDEOS."""
+    """K1 once an encoder layer a forward, no other kernel but K4 once a
+    tracked video of more than one frame; ``videos`` (h, w, frames,
+    instances) default to ENGINE_VIDEOS.  The windowed path runs a forward
+    a window; the single-shot path (the offline archs) one a video of
+    ``_bucket(t) <= test.max_frames`` frames, else one a window, and tracks
+    nothing."""
     videos = ENGINE_VIDEOS if videos is None else videos
     window = engine.window_size(cfg)
     enc = cfg.model.pixel_decoder.transformer_enc_layers
+    if engine.is_single_shot(cfg.model.meta_architecture):
+        shots = sum(1 if engine._bucket(t) <= cfg.model.test.max_frames else -(-t // window)
+                    for _, _, t, _ in videos)
+        return {**{k: 0 for k in launches}, "msda_fwd": enc * shots}
     return {**{k: 0 for k in launches},
             "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in videos),
             "hungarian": sum(t > 1 for _, _, t, _ in videos)}
@@ -1791,20 +1844,35 @@ def phase_engine(card: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _write_check_video(root, cats):
+    """Phase 10's f32 check video under ``root``, registered; returns its
+    dataset's name."""
+    name = ENGINE_DATASET + "_check"
+    catalog.register(dataclasses.replace(
+        synthetic.write_ytvis_dataset(root, "check", [ENGINE_CHECK_VIDEO], cats, seed=SEED + 3),
+        name=name))
+    return name
+
+
+def _check_config(cfg, root, name):
+    """``cfg`` evaluating the check video ``name`` under ``root`` in f32, in
+    windows of ENGINE_CHECK_WINDOW, its canvas cut to the video's size."""
+    h, w = ENGINE_CHECK_VIDEO[:2]
+    test = dataclasses.replace(cfg.model.test, window_inference=True,
+                               window_size=ENGINE_CHECK_WINDOW, amp=False)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, test=test),
+        input=dataclasses.replace(cfg.input, min_size_test=h, pad_size=(h, w)),
+        datasets=dataclasses.replace(cfg.datasets, root=root, test=(name,)))
+
+
 def phase_engine_vs_plain(root, cats, clip_weights=None):
     """One short f32 video through the engine on the card (kernels) and on
     the CPU (plain), from one model; with ``clip_weights`` (a test-tiny CLIP
     checkpoint) through the recipe's CLIP ensemble, the model's text width
     cut to the tower's."""
-    name = ENGINE_DATASET + "_check"
-    catalog.register(dataclasses.replace(
-        synthetic.write_ytvis_dataset(root, "check", [ENGINE_CHECK_VIDEO], cats, seed=SEED + 3),
-        name=name))
-    h, w = ENGINE_CHECK_VIDEO[:2]
-    base = _engine_config(root, window_inference=True, window_size=ENGINE_CHECK_WINDOW, amp=False)
-    base = dataclasses.replace(
-        base, input=dataclasses.replace(base.input, min_size_test=h, pad_size=(h, w)),
-        datasets=dataclasses.replace(base.datasets, test=(name,)))
+    name = _write_check_video(root, cats)
+    base = _check_config(_engine_config(root), root, name)
     dim = TEXT_DIM
     if clip_weights is not None:
         dim = model_shape(ENSEMBLE_CHECK_CLIP)["embed_dim"]
@@ -1815,14 +1883,28 @@ def phase_engine_vs_plain(root, cats, clip_weights=None):
                 base.model.transformer_decoder, clip_embed_dim=dim)))
     model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
     text = _text(np.random.RandomState(SEED + 3), dim)
-    runs = {}
+    _hold_engine_to_plain("engine_kernels_vs_plain" if clip_weights is None else
+                          "ensemble_kernels_vs_plain", base, model, text, name, root,
+                          clip=clip_weights is not None,
+                          extra={"clip": None if clip_weights is None else ENSEMBLE_CHECK_CLIP})
+
+
+def _hold_engine_to_plain(phase, base, model, text, name, root, clip=False,
+                          kernels=("msda_fwd", "hungarian"), extra=None):
+    """The engine with ``base`` over the check video ``name``, f32, on the card
+    (kernels) and on the CPU (plain), from one model, held to phase 10's f32
+    bounds; ``clip``: through the CLIP tower of ``base``'s clip_adapter;
+    ``kernels``: those the card's run must launch.  Returns the card run's
+    launches and its K4 recorder."""
+    runs, tracking = {}, None
     for device in ("cpu", DEVICE):
-        cfg = dataclasses.replace(base, output_dir=os.path.join(root, f"check_{device}"))
-        visual = None if clip_weights is None else clip_towers.build_clip_visual(cfg, device)
+        cfg = dataclasses.replace(base, output_dir=os.path.join(root, f"{phase}_{device}"))
+        visual = clip_towers.build_clip_visual(cfg, device) if clip else None
         reset_counts()
         t0 = time.perf_counter()
-        metrics = engine.evaluate_dataset(cfg, model, name, text, clip_visual_apply=visual,
-                                          device=device)
+        with HungarianRecorder() as tracking:
+            metrics = engine.evaluate_dataset(cfg, model, name, text, clip_visual_apply=visual,
+                                              device=device)
         seconds = time.perf_counter() - t0
         with open(os.path.join(cfg.output_dir, f"results_{name}.json")) as f:
             runs[device] = (metrics, json.load(f), seconds, read_counts())
@@ -1832,9 +1914,7 @@ def phase_engine_vs_plain(root, cats, clip_weights=None):
     agree = min((_masks_agree(a["segmentations"], b["segmentations"])
                  for a, b in zip(p_got, p_ref)), default=1.0)
     metric_err = max(abs(m_got[k] - m_ref[k]) for k in m_ref)
-    emit({"phase": "engine_kernels_vs_plain" if clip_weights is None else
-          "ensemble_kernels_vs_plain", "dtype": "float32", "tf32": False,
-          "clip": None if clip_weights is None else ENSEMBLE_CHECK_CLIP,
+    emit({"phase": phase, "dtype": "float32", "tf32": False, **(extra or {}),
           "video_hwtn": ENGINE_CHECK_VIDEO, "window": ENGINE_CHECK_WINDOW,
           "predictions": [len(p_got), len(p_ref)], "categories_equal": same,
           "max_abs_score_err": score_err, "min_mask_agreement": agree,
@@ -1844,9 +1924,11 @@ def phase_engine_vs_plain(root, cats, clip_weights=None):
                   "metric_atol": ENGINE_F32_METRIC_ATOL}})
     if not (same and len(p_got) == len(p_ref) and score_err <= ENGINE_F32_SCORE_ATOL
             and agree >= ENGINE_F32_MASK_AGREE and metric_err <= ENGINE_F32_METRIC_ATOL):
-        raise AssertionError("the engine on the card disagrees with the engine on the CPU")
-    if launches["msda_fwd"] == 0 or launches["hungarian"] == 0:
-        raise AssertionError(f"the card's engine run skipped a kernel: {launches}")
+        raise AssertionError(f"{phase}: the engine on the card disagrees with the engine on "
+                             "the CPU")
+    if any(launches[k] == 0 for k in kernels):
+        raise AssertionError(f"{phase}: the card's engine run skipped a kernel: {launches}")
+    return launches, tracking
 
 
 def write_clip_files(root):
@@ -2779,11 +2861,7 @@ def _recipe_cli(card, clip, config, steps, label, keep_checkpoints=None):
         ds = cfg.datasets.test[0]
         with open(os.path.join(out, f"metrics_{ds}.json")) as f:
             metrics = json.load(f)
-        enc = cfg.model.pixel_decoder.transformer_enc_layers
-        window = engine.window_size(cfg)
-        expected2 = {**{k: 0 for k in launches2},
-                     "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in CLI_EVAL_VIDEOS),
-                     "hungarian": len(CLI_EVAL_VIDEOS)}
+        expected2 = _engine_expected(cfg, launches2, CLI_EVAL_VIDEOS)
         emit({"phase": f"{label}_cli_eval", "metrics": metrics, "wall_s": wall2,
               "launches": launches2, "expected_launches": expected2, "card": card})
         if not metrics or not all(np.isfinite(v) for v in metrics.values()):
@@ -3226,11 +3304,7 @@ def phase_brivis_cli(card, clip, stage1):
         ds = cfg.datasets.test[0]
         with open(os.path.join(out, f"metrics_{ds}.json")) as f:
             metrics = json.load(f)
-        enc = cfg.model.pixel_decoder.transformer_enc_layers
-        window = engine.window_size(cfg)
-        expected2 = {**{k: 0 for k in launches2},
-                     "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in CLI_EVAL_VIDEOS),
-                     "hungarian": len(CLI_EVAL_VIDEOS)}
+        expected2 = _engine_expected(cfg, launches2, CLI_EVAL_VIDEOS)
         emit({"phase": "brivis_cli_eval", "metrics": metrics, "wall_s": wall2,
               "launches": launches2, "expected_launches": expected2, "card": card})
         if not metrics or not all(np.isfinite(v) for v in metrics.values()):
@@ -3691,6 +3765,509 @@ def phase_burst(card, clip, stage1):
         shutil.rmtree(root, ignore_errors=True)
 
 
+class StageSpans:
+    """CUDA events around named stages (``name -> (object, attribute)``: the
+    callable is patched on the object for the run) and around each call of a
+    window function wrapped by ``window``."""
+
+    def __init__(self, targets):
+        self._targets = targets
+
+    def __enter__(self):
+        self.events = {k: [] for k in (*self._targets, "windows")}
+        self._orig = {k: (getattr(obj, name), name in vars(obj))
+                      for k, (obj, name) in self._targets.items()}
+
+        def around(key, fn):
+            def timed(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return timed
+
+        for key, (obj, name) in self._targets.items():
+            setattr(obj, name, around(key, self._orig[key][0]))
+        self.window = lambda fn: around("windows", fn)
+        return self
+
+    def __exit__(self, *exc):
+        for key, (obj, name) in self._targets.items():
+            fn, own = self._orig[key]
+            if own:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)  # a module's forward: the class's method again
+
+    def split_ms(self, rest: str, windows: int):
+        """Milliseconds of each stage a window, and ``rest``: the windows' time
+        less the stages'."""
+        torch.cuda.synchronize()
+        out = {k: sum(a.elapsed_time(b) for a, b in self.events[k]) / windows
+               for k in self._targets}
+        total = sum(a.elapsed_time(b) for a, b in self.events["windows"]) / windows
+        out[rest] = total - sum(out.values())
+        return out
+
+
+def _offline_config(config, clip, *overrides):
+    """An offline recipe with the CLIP files ``clip`` (weights, bpe) and
+    ``overrides``."""
+    return load_config(config, [f"model.clip_adapter.weights={clip[0]}",
+                                f"model.clip_adapter.bpe_vocab={clip[1]}", *overrides])
+
+
+def _timed_shots(model, cfg, clips, text):
+    """Three timed shots of ``train.make_eval_fn`` (after a warm-up): (outputs,
+    ms a shot, peak GiB, launches)."""
+    eval_fn = train.make_eval_fn(cfg, model)
+    eval_fn(clips[0], text)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    outs = [eval_fn(x, text) for x in clips]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    return (outs, start.elapsed_time(end) / len(clips),
+            torch.cuda.max_memory_allocated() / 2 ** 30, launches)
+
+
+def _random_clips(rng, n, t, h, w):
+    return [torch.from_numpy(rng.randn(t, h, w, 3).astype(np.float32)).to(DEVICE, torch.bfloat16)
+            for _ in range(n)]
+
+
+def phase_offline_shot(card, cfg):
+    """17.1: offline SimpleBaseline-R50 (the recipe's model, random weights from
+    the seed, bf16) through ``train.make_eval_fn``: three single shots of
+    10x384x640 with their split (backbone, pixel decoder, video decoder, the
+    scores and top-k); then one shot of test.max_frames = 128 frames on the
+    480x864 canvas (twice: cold, then warm) with its peak memory.  Returns
+    the launches of the three shots."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
+        dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    clips = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    outs, ms, peak, launches = _timed_shots(model, cfg, clips, text)
+    seg = model.segmenter
+    with StageSpans({"backbone": (seg.backbone, "forward"),
+                     "pixel_decoder": (seg.pixel_decoder, "forward"),
+                     "video_decoder": (seg.predictor, "forward")}) as spans:
+        timed = spans.window(train.make_eval_fn(cfg, model))
+        for x in clips:
+            timed(x, text)
+    split = spans.split_ms("scores_topk", NUM_WINDOWS)
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"offline shot {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS}
+    del outs, clips
+    # the single-shot cap: 128 frames on the canvas every test video is padded to
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cap = torch.randn(OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W, 3, generator=gen,
+                      device=DEVICE).to(torch.bfloat16)
+    eval_fn = train.make_eval_fn(cfg, model)
+    cap_ms = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = eval_fn(cap, text)
+        end.record()
+        torch.cuda.synchronize()
+        cap_ms.append(start.elapsed_time(end))
+    cap_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_outputs(out, q, K_CLASSES, OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W, "offline cap")
+    tokens = OFFLINE_CAP_T * (OFFLINE_CAP_H // 8) * (OFFLINE_CAP_W // 8)
+    emit({"phase": "offline_shot_full_width", "config": OFFLINE_CONFIG, "dtype": "bfloat16",
+          "shots": NUM_WINDOWS, "frames_per_shot": t, "frame_hw": [h, w], "ms_per_shot": ms,
+          "frames_per_s": t / (ms / 1e3), "split_ms_per_shot": split, "peak_mem_gib": peak,
+          "launches": launches, "expected_launches": expected,
+          "cap_shot": {"frames": OFFLINE_CAP_T, "frame_hw": [OFFLINE_CAP_H, OFFLINE_CAP_W],
+                       "ms_cold_warm": cap_ms, "frames_per_s": OFFLINE_CAP_T / (cap_ms[1] / 1e3),
+                       "level2_tokens": tokens, "peak_mem_gib": cap_peak},
+          "card": card})
+    if launches != expected:
+        raise AssertionError(f"offline shot launches {launches} != {expected}")
+    del cap, out, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _single_shot_eval(cfg):
+    """``make_eval`` for ``_hold_window_to_plain``: the engine's single shot of
+    a clip padded to ``_bucket(t)`` frames with its last frame, the top-k
+    masks cut to the t real frames."""
+    def make_eval(model, device):
+        shot = engine.make_single_shot_fn(cfg, model)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+
+        @torch.inference_mode()
+        def fn(frames, text):
+            t = frames.shape[0]
+            tb = engine._bucket(t)
+            out = shot(params, engine._pad_frames(frames, tb), text,
+                       torch.arange(tb, device=frames.device) < t)
+            return {**out, "mask_logits": out["mask_logits"][:, :t]}
+        return fn
+    return make_eval
+
+
+def phase_offline_vs_plain(cfg):
+    """17.2: the same model in f32 at 192x320 on T=5 frames padded to 8 (the
+    engine's single shot), card (kernels) against CPU (plain), phase 7's
+    bounds."""
+    cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 1)
+    _hold_window_to_plain("offline_kernels_vs_plain", cfg, cpu_model, CHECK_TRAIN_H,
+                          CHECK_TRAIN_W, make_eval=_single_shot_eval(cfg),
+                          frames=OFFLINE_CHECK_T, kernels=("msda_fwd",))
+
+
+def phase_offline_train(card, cfg, label, hold=True):
+    """17.3 / 17.5: the clip-level train step at full width (1x2x480x864,
+    N=40, bf16 AMP, f32 masters): one warm-up and three timed steps, the
+    launches of K1-K6, K5's call shapes (clip-level rows: Q*T and N*T); with
+    ``hold``, K1, K2, K3, K4, K5 and K6 on the warm-up step's recorded inputs
+    against their plain versions.  Returns the launches of the timed steps."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+    head = model.segmenter.predictor.heads.class_embed
+    before = [p.detach().clone() for p in head.parameters()]
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with MsdaRecorder() as msda_rec, HungarianRecorder() as k4_rec, SamplerInputs() as s_rec:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator; its inputs recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with SamplerShapes() as shapes:
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    # K5's calls: phase 5's three samplings, their rows a clip's Q*T masks
+    # (the matcher) and N*T targets (the losses)
+    clip_shapes = {case: (1, rows * TRAIN_T, h, w, p)
+                   for case, (_, rows, h, w, p) in SAMPLER_CASES.items()}
+    by_shape = {case: shapes.counts.pop(shape, 0) for case, shape in clip_shapes.items()}
+    other_shapes = {str(k): v for k, v in shapes.counts.items()}
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    moved = not all(torch.equal(p.detach(), b) for p, b in zip(head.parameters(), before))
+    emit({"phase": f"{label}_full_width", "config": cfg.model.meta_architecture,
+          "decoder": cfg.model.transformer_decoder.name, "dtype": "bf16 AMP, f32 masters",
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "k5_launches_by_shape": {c: [list(clip_shapes[c]), n] for c, n in by_shape.items()},
+          "k5_launches_at_other_shapes": other_shapes, "class_head_moved": moved,
+          "card": card})
+    if launches != expected:
+        raise AssertionError(f"{label} launches {launches} != {expected}")
+    if other_shapes or min(by_shape.values()) == 0:
+        raise AssertionError(f"{label}: K5's shapes {by_shape}, others {other_shapes}, are not "
+                             f"the clip-level {clip_shapes}")
+    if not all(np.isfinite(v) for m in values for v in m.values()) or not moved:
+        raise AssertionError(f"{label}: a loss is not finite or the class head did not move")
+    if hold:
+        _hold_k1(label, msda_rec)
+        _hold_k2_k3(label, msda_rec)
+        _hold_k4_k5_k6(label, k4_rec, s_rec, k4_calls=1)
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_offline_train_vs_plain(cfg):
+    """17.3b: one f32 clip-level train-step loss and gradient at 1x2x192x320,
+    card against CPU, phase 9's bounds."""
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = _offsets_off_centres(
+        init_params(train.build_model(f32, device="cpu"), seed=SEED + 2), SEED + 2)
+    _hold_train_to_plain("offline_train_kernels_vs_plain", f32, cpu_model,
+                         TRAIN_CHECK_PARAMS + ("segmenter.predictor.heads.class_embed.layer1.weight",))
+
+
+def phase_offline_engine(card, cfg, label, model, text, visual=None):
+    """17.4 / 17.5 / 17.6: the engine with an offline recipe's eval settings
+    over phase 10's dataset (written to ``cfg.datasets.root``): a warm-up over
+    the first video, then the timed run, single-shot (36 -> 40 and 19 -> 24
+    frames; the 133-frame video in windows of ``window_size``), with its split
+    (the shots, the windows, the CLIP crops), its peak and its launches: K1
+    only.  Returns the launches of the timed run."""
+    _engine_warm_up(cfg, model, text, visual)
+    with HungarianRecorder() as tracking:
+        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = _engine_expected(cfg, launches)
+    finite = all(np.isfinite(v) for v in metrics.values())
+    split = {**_engine_split(spans, wall),
+             "single_shots_device": spans.device_seconds("single_shot"),
+             "single_shot_windows_device": spans.device_seconds("single_shot_windows"),
+             "clip_crops_device": spans.device_seconds("clip_crops"),
+             "roi_crop_device": spans.device_seconds("roi_crop")}
+    max_frames, window = cfg.model.test.max_frames, engine.window_size(cfg)
+    forwards = [[engine._bucket(t)] if engine._bucket(t) <= max_frames else
+                [window] * -(-t // window) for _, _, t, _ in ENGINE_VIDEOS]
+    emit({"phase": f"{label}_full_width", "config": cfg.model.meta_architecture,
+          "decoder": cfg.model.transformer_decoder.name,
+          "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+          "forward_frames_per_video": forwards, "ensemble": visual is not None,
+          "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
+          "max_frames": max_frames, "window": window, "metrics": metrics,
+          "metrics_finite": finite, "predictions": len(spans.preds), "launches": launches,
+          "expected_launches": expected, "frames": spans.frames, "wall_s": wall,
+          "frames_per_s": spans.frames / wall, "split_s": split, "peak_mem_gib": peak,
+          "card": card})
+    if launches != expected or tracking.costs:
+        raise AssertionError(f"{label} launches {launches} != {expected}")
+    if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+        raise AssertionError(f"{label} metrics {metrics}, {len(spans.preds)} predictions")
+    shots = len(spans.events["single_shot"]) + len(spans.events["single_shot_windows"])
+    if shots != sum(map(len, forwards)) or (visual is not None and not spans.events["roi_crop"]):
+        raise AssertionError(f"{label}: {shots} single-shot forwards, crops "
+                             f"{len(spans.events['roi_crop'])}")
+    return launches
+
+
+def _engine_root_config(config, clip, root, *overrides):
+    return _offline_config(config, clip, f"datasets.root={root}",
+                           f"datasets.test=[{ENGINE_DATASET}]",
+                           f"output_dir={os.path.join(root, 'out')}", *overrides)
+
+
+def phase_offline_simple_baseline(card, clip):
+    """17.1-17.4: offline SimpleBaseline-R50; returns its paths' launches."""
+    import train_net_torch as cli
+
+    cfg = _offline_config(OFFLINE_CONFIG, clip)
+    launches = {"offline_eval": phase_offline_shot(card, cfg)}
+    phase_offline_vs_plain(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, test=dataclasses.replace(cfg.model.test, amp=False))))
+    launches["offline_train"] = phase_offline_train(card, cfg, "offline_train")
+    phase_offline_train_vs_plain(cfg)
+    root = tempfile.mkdtemp(prefix="chip_smoke_offline_engine_")
+    try:
+        _write_engine_dataset(root)
+        cfg = _engine_root_config(OFFLINE_CONFIG, clip, root)
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        text = cli.build_text_bank(cfg, DEVICE).encode(
+            list(catalog.get(ENGINE_DATASET).thing_classes))
+        visual = clip_towers.build_clip_visual(cfg, DEVICE)
+        launches["offline_engine"] = phase_offline_engine(card, cfg, "offline_engine", model,
+                                                          text, visual)
+        del model, visual
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_offline_openvis(card, clip):
+    """17.5: offline OpenVIS (the recipe's model, ``model.weights`` left empty:
+    the converted Mask2Former checkpoint is not in the repository): its train
+    step, its engine over phase 10's dataset (scored on the objectness, as the
+    JAX engine does: no tower), and the ``frame_proposal`` recipe's engine on
+    phase 10's f32 check video, card against CPU.  Returns its paths'
+    launches."""
+    cfg = _offline_config(OPENVIS_OFFLINE_CONFIG, clip, "model.weights=")
+    launches = {"openvis_offline_train": phase_offline_train(card, cfg, "openvis_offline_train",
+                                                             hold=False)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_openvis_offline_")
+    try:
+        cats, _ = _write_engine_dataset(root)
+        cfg = _engine_root_config(OPENVIS_OFFLINE_CONFIG, clip, root, "model.weights=")
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        launches["openvis_offline_engine"] = phase_offline_engine(
+            card, cfg, "openvis_offline_engine", model, _text(np.random.RandomState(SEED)))
+        del model
+        torch.cuda.empty_cache()
+        name = _write_check_video(root, cats)
+        base = _check_config(_offline_config(OPENVIS_FRAME_CONFIG, clip), root, name)
+        cpu_model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
+        launches["openvis_frame_check"], _ = _hold_engine_to_plain(
+            "openvis_frame_engine_kernels_vs_plain", base, cpu_model,
+            _text(np.random.RandomState(SEED + 3)), name, root, kernels=("msda_fwd",),
+            extra={"config": OPENVIS_FRAME_CONFIG, "decoder": "frame_proposal"})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_offline_san(card, clip):
+    """17.6: offline SAN (the recipe's model: the video side-adapter decoder
+    over the CLIP split of phase 11's random ViT-B/16): three timed 10x384x640
+    bf16 shots with their split (CLIP front, segmenter, CLIP post, top-k);
+    an f32 shot at 192x320, card against CPU; the engine over phase 10's
+    dataset with its peak; its train step raising its named error.  Returns
+    its paths' launches."""
+    import train_net_torch as cli
+
+    cfg = _offline_config(SAN_OFFLINE_CONFIG, clip)
+    tree = cli.read_clip(cfg)
+    model = _san_model(cfg, tree, DEVICE, SEED).to(dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    clips = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    outs, ms, peak, eval_launches = _timed_shots(model, cfg, clips, text)
+    with StageSpans({"clip_front": (model.clip_adapter, "front_encode"),
+                     "segmenter": (model.segmenter, "forward"),
+                     "clip_post": (model.clip_adapter, "post_encode")}) as spans:
+        timed = spans.window(train.make_eval_fn(cfg, model))
+        for x in clips:
+            timed(x, text)
+    split = spans.split_ms("scores_topk", NUM_WINDOWS)
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"offline SAN shot {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in eval_launches}, "msda_fwd": enc * NUM_WINDOWS}
+    try:
+        train.build_train_step(cfg, model.float(), K_CLASSES, device=DEVICE)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    emit({"phase": "san_offline_shot_full_width", "config": SAN_OFFLINE_CONFIG,
+          "dtype": "bfloat16", "shots": NUM_WINDOWS, "frames_per_shot": t, "frame_hw": [h, w],
+          "ms_per_shot": ms, "frames_per_s": t / (ms / 1e3), "split_ms_per_shot": split,
+          "peak_mem_gib": peak, "launches": eval_launches, "expected_launches": expected,
+          "train_step_refused": refused, "card": card})
+    if eval_launches != expected:
+        raise AssertionError(f"offline SAN shot launches {eval_launches} != {expected}")
+    if not refused or "criterion.py:290" not in refused or "ROADMAP.md §3" not in refused:
+        raise AssertionError(f"offline SAN's train step did not raise its named error: {refused}")
+    del outs, clips, model
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, test=dataclasses.replace(cfg.model.test, amp=False)))
+    _hold_window_to_plain("san_offline_kernels_vs_plain", f32,
+                          _san_model(f32, tree, "cpu", SEED + 1), CHECK_TRAIN_H, CHECK_TRAIN_W,
+                          kernels=("msda_fwd",))
+    root = tempfile.mkdtemp(prefix="chip_smoke_san_offline_")
+    try:
+        _write_engine_dataset(root)
+        cfg = _engine_root_config(SAN_OFFLINE_CONFIG, clip, root)
+        model = _san_model(cfg, tree, DEVICE, SEED)
+        engine_launches = phase_offline_engine(card, cfg, "san_offline_engine", model,
+                                               _text(np.random.RandomState(SEED)))
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"san_offline_eval": eval_launches, "san_offline_engine": engine_launches}
+
+
+def phase_video_maskformer_minvis(card):
+    """17.7: VideoMaskFormer (``video``) and MinVIS (``frame``), the class head
+    over Config()'s 40 classes: an f32 window each at 192x320, card against
+    CPU; then MinVIS through the engine on phase 10's f32 check video, card
+    against CPU, with K4 on its tracking costs held to ``hungarian_plain``.
+    Returns the MinVIS engine run's launches."""
+    def arch(name, decoder):
+        cfg = _full_config(amp=False)
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, meta_architecture=name, transformer_decoder=dataclasses.replace(
+                cfg.model.transformer_decoder, name=decoder)))
+
+    vmf, minvis = arch("VideoMaskFormer", "video"), arch("MinVIS", "frame")
+    _hold_window_to_plain("video_maskformer_kernels_vs_plain", vmf,
+                          init_params(train.build_model(vmf, device="cpu"), seed=SEED + 1),
+                          CHECK_TRAIN_H, CHECK_TRAIN_W, kernels=("msda_fwd",))
+    _hold_window_to_plain("minvis_kernels_vs_plain", minvis,
+                          init_params(train.build_model(minvis, device="cpu"), seed=SEED + 1),
+                          CHECK_TRAIN_H, CHECK_TRAIN_W)
+    root = tempfile.mkdtemp(prefix="chip_smoke_minvis_")
+    try:
+        ytvis19 = catalog.get("ytvis_2019_val")
+        cats = [{"id": cid, "name": ytvis19.thing_classes[i]}
+                for cid, i in ytvis19.id_map.items()]
+        name = _write_check_video(root, cats)
+        base = _check_config(minvis, root, name)
+        model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
+        launches, tracking = _hold_engine_to_plain(
+            "minvis_engine_kernels_vs_plain", base, model, _text(np.random.RandomState(SEED + 3)),
+            name, root, extra={"config": "MinVIS", "decoder": "frame"})
+        plain = _plain_assignments(tracking.costs)
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        emit({"phase": "k4_recorded_inputs", "path": "minvis_engine",
+              "shapes": [list(c.shape) for c in tracking.costs], "equal_to_plain": not differ,
+              "problems_differing": differ})
+        if differ or len(tracking.costs) != 1:
+            raise AssertionError(f"K4 on MinVIS's tracking costs differs from hungarian_plain: "
+                                 f"{differ}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_san_offline_cli(card, clip, stage1):
+    """17.8b: ``train_net_torch.py --eval-only`` with san_R50_bs16_6000st.yaml
+    on phase 13's SANOnline checkpoint ``stage1`` (the same parameter tree):
+    the single-shot eval over phase 11's eval set.  Returns its launches."""
+    import train_net_torch as cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_san_offline_cli_")
+    try:
+        out = os.path.join(root, "out")
+        common = _cli_data(root) + [f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}",
+                                    f"output_dir={out}"]
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--config-file", SAN_OFFLINE_CONFIG, "--eval-only", "--weights", stage1,
+                  *common])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        cfg = load_config(SAN_OFFLINE_CONFIG, common)
+        with open(os.path.join(out, f"metrics_{cfg.datasets.test[0]}.json")) as f:
+            metrics = json.load(f)
+        expected = _engine_expected(cfg, launches, CLI_EVAL_VIDEOS)
+        emit({"phase": "san_offline_cli_eval", "config": SAN_OFFLINE_CONFIG,
+              "weights": "phase 13's SANOnline checkpoint", "metrics": metrics, "wall_s": wall,
+              "launches": launches, "expected_launches": expected, "card": card})
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the offline SAN CLI eval wrote {metrics}")
+        if launches != expected:
+            raise AssertionError(f"offline SAN CLI eval launches {launches} != {expected}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_offline(card, clip, stage1):
+    """Phase 17: the offline (clip-level) archs; returns their paths' launch
+    counts by name.  ``stage1``: phase 13's SANOnline checkpoint directory."""
+    launches = phase_offline_simple_baseline(card, clip)
+    launches.update(phase_offline_openvis(card, clip))
+    launches.update(phase_offline_san(card, clip))
+    launches["minvis_engine"] = phase_video_maskformer_minvis(card)
+    launches["offline_cli_train"], launches["offline_cli_eval"] = _recipe_cli(
+        card, clip, OFFLINE_CONFIG, OFFLINE_CLI_STEPS, "offline")
+    launches["san_offline_cli_eval"] = phase_san_offline_cli(card, clip, stage1)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -3723,6 +4300,7 @@ def main() -> int:
         brivis_launches = phase_brivis(card, clip, stage1)
         openvis_launches = phase_openvis(card, clip)
         burst_launches = phase_burst(card, clip, stage1)
+        offline_launches = phase_offline(card, clip, stage1)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in cli_recorded.items():
@@ -3748,7 +4326,8 @@ def main() -> int:
                               **{path: n[name] for path, n in san_launches.items()},
                               **{path: n[name] for path, n in brivis_launches.items()},
                               **{path: n[name] for path, n in openvis_launches.items()},
-                              **{path: n[name] for path, n in burst_launches.items()}},
+                              **{path: n[name] for path, n in burst_launches.items()},
+                              **{path: n[name] for path, n in offline_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

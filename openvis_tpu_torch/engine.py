@@ -1,7 +1,7 @@
-"""Evaluation engine: windowed video inference + evaluator loop.
+"""Evaluation engine: windowed and single-shot video inference + evaluator loop.
 
-Port of ``openvis_tpu/engine.py``, the path of the frame-decoder (online)
-SimpleBaseline, OpenVIS and SAN: each video runs through the per-frame stack
+Port of ``openvis_tpu/engine.py``.  The path of the frame-decoder (online)
+SimpleBaseline, OpenVIS, SAN and MinVIS: each video runs through the per-frame stack
 in windows of ``window_size(cfg)`` frames, the windows' outputs are
 concatenated over time, identity is restored by embedding tracking over the
 whole video (``minvis.py:320-338``), the top-k (query, class) pairs are kept
@@ -62,9 +62,25 @@ videos p, p + P, ... (``max_videos`` counted globally); rank 0 gathers the
 predictions (``torch.distributed``, no shared file system) and scores them;
 the other processes return ``{}``.
 
-Everything the JAX engine dispatches elsewhere (the offline archs and the
-single-shot eval, OV2Seg) raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+The offline (video-decoder) archs, SimpleBaseline, OpenVIS, SAN and
+VideoMaskFormer, evaluate single-shot (JAX ``_evaluate_single_shot``,
+``engine.py:216-295``, ``:836-939``): a video of ``_bucket(t) <=
+test.max_frames`` frames runs as one forward of ``_bucket(t)`` frames, padded
+with its last frame repeated as the JAX engine pads it (the video decoder's
+attention over the clip is not masked, so the padded frames change the real
+frames' outputs); a longer one runs in windows of ``window_size(cfg)``, the
+tail padded to a whole window, its per-window scores summed and divided by
+T, its masks joined over the real frames.  A clip-level head scores
+``softmax(logits)`` less the no-object column; a frame-level head (OpenVIS's
+``frame_proposal``, SAN's per-frame CLIP logits) averages its logits over the
+real frames first.  Offline SimpleBaseline with the CLIP tower and
+``clip_ensemble`` ensembles every query's scores with the mask-crop CLIP
+scores over the real frames before the top-k; nothing is tracked.  Offline
+OpenVIS is scored on its objectness, as in the JAX engine (ROADMAP.md §3
+records that the reference crops with CLIP there too).
+
+OV2Seg and MasQCLIP raise ``NotImplementedError`` naming their ROADMAP.md
+items.
 """
 
 from __future__ import annotations
@@ -93,9 +109,12 @@ from openvis_tpu_torch.train import ITEM_OF_ARCH, eval_model, resolve_device
 
 logger = logging.getLogger(__name__)
 
-_PORTED_ARCHS = ("SimpleBaselineOnline", "OpenVISOnline", "SANOnline", "BriVIS")
-# offline SimpleBaseline trains, but evaluates through the single-shot eval
-_ITEM_OF_ARCH = {**ITEM_OF_ARCH, "SimpleBaseline": "8.3"}
+_PORTED_ARCHS = ("SimpleBaseline", "SimpleBaselineOnline", "OpenVIS", "OpenVISOnline",
+                 "SAN", "SANOnline", "BriVIS", "VideoMaskFormer", "MinVIS")
+# the offline (clip-level) archs: the JAX engine's list less BriVIS, which it
+# dispatches first (its own whole-video path here too), and MasQCLIP (queue 1
+# item 8.7)
+_OFFLINE_ARCHS = ("VideoMaskFormer", "SimpleBaseline", "OpenVIS", "SAN")
 
 
 def _not_ported(what: str, item) -> NotImplementedError:
@@ -329,10 +348,135 @@ def make_brivis_video_fn(cfg: Config, model: nn.Module, params: Dict[str, torch.
     return fn
 
 
+def is_single_shot(arch: str) -> bool:
+    """The offline (clip-level) archs evaluate the whole bucketed video in one
+    forward."""
+    return arch in _OFFLINE_ARCHS
+
+
+def _frame_mean(logits: torch.Tensor, frame_valid: torch.Tensor) -> torch.Tensor:
+    """(T, Q, C) logits -> (Q, C) f32 sums over the valid frames."""
+    return (logits.float() * frame_valid[:, None, None].float()).sum(0)
+
+
+def _shot(model: nn.Module, params, frames: torch.Tensor, text_feats: torch.Tensor):
+    """One clip's forward: (masks (Q, T, h, w), logits (Q, C) or (T, Q, C))."""
+    out = torch.func.functional_call(model, params, (frames, frames.shape[0], text_feats))
+    # a copy: the slice would hold every layer's masks alive
+    return out["pred_masks"][0].clone(), out["pred_logits"][0]
+
+
+def make_single_shot_fn(cfg: Config, model: nn.Module, pre_topk: bool = False) -> Callable:
+    """f(params, frames (T, H, W, 3), text_feats, frame_valid (T,)) -> top-k dict
+    of one video's single shot (JAX ``engine.py:236-262``): the clip-level
+    head's ``softmax(logits)`` less the no-object column, a frame-level
+    head's logits averaged over the valid frames first (scores in f32).
+    ``pre_topk`` returns ``(probs (Q, K), masks (Q, T, h, w))`` of all queries
+    instead: the SimpleBaseline ensemble scores every query with the CLIP
+    crops before the top-k."""
+    topk = cfg.model.test.topk_per_video
+    model = eval_model(model)
+
+    def fn(params, frames, text_feats, frame_valid):
+        masks, logits = _shot(model, params, frames, text_feats)
+        if logits.dim() == 3:                                      # (T, Q, C): frame head
+            logits = _frame_mean(logits, frame_valid) / frame_valid.sum().clamp(min=1)
+        probs = torch.softmax(logits.float(), dim=-1)[..., :-1]
+        if pre_topk:
+            return probs, masks
+        return inference_video_topk(probs, masks, topk)
+
+    return fn
+
+
+def make_single_shot_window_fn(cfg: Config, model: nn.Module) -> Callable:
+    """f(params, frames (W, H, Wd, 3), text_feats, frame_valid (W,)) ->
+    (score sums (Q, C) f32, masks (Q, W, h, w)) of one window of a video
+    longer than ``test.max_frames`` (JAX ``engine.py:265-298``, the
+    reference's ``run_window_inference``): a clip-level head's logits times
+    the window's valid frames, a frame-level head's logits summed over them;
+    the caller sums the windows and divides by T."""
+    model = eval_model(model)
+
+    def fn(params, frames, text_feats, frame_valid):
+        masks, logits = _shot(model, params, frames, text_feats)
+        if logits.dim() == 3:                                      # (W, Q, C): frame head
+            return _frame_mean(logits, frame_valid), masks
+        return logits.float() * frame_valid.sum(), masks
+
+    return fn
+
+
+def _pad_frames(frames: torch.Tensor, n: int) -> torch.Tensor:
+    """(t, ...) -> (n, ...): the last frame repeated, as the JAX engine pads."""
+    return torch.cat([frames, frames[-1:].expand(n - frames.shape[0], *frames.shape[1:])])
+
+
+def _evaluate_single_shot(cfg: Config, model: nn.Module, params: Dict[str, torch.Tensor],
+                          dataset_name: str, text: torch.Tensor, max_videos, evaluator,
+                          clip_visual_apply, device, dtype) -> List[int]:
+    """The offline archs' eval loop (JAX ``engine.py:840-944``); returns the
+    predictions of each video, in this process's order."""
+    arch = cfg.model.meta_architecture
+    topk = cfg.model.test.topk_per_video
+    max_frames = cfg.model.test.max_frames
+    window = window_size(cfg)
+    ensemble = (arch == "SimpleBaseline" and cfg.model.clip_adapter.clip_ensemble
+                and clip_visual_apply is not None)
+    shot_fn = make_single_shot_fn(cfg, model, pre_topk=ensemble)
+    window_fn = make_single_shot_window_fn(cfg, model)
+    if ensemble:
+        from openvis_tpu_torch import clip_towers  # it imports this module's eval_dtype
+
+        score_fn = clip_towers.make_openvis_score_fn(cfg, clip_visual_apply)
+        text_crop, crop_has_bg = clip_towers.crop_text_with_bg(cfg, params, text)
+        weight = cfg.model.clip_adapter.clip_ensemble_weight
+
+    def ensembled_topk(probs, masks, pixels, t):
+        clip_lg, clip_vd = clip_towers.clip_crop_scores(cfg, score_fn, pixels,
+                                                        masks.transpose(0, 1), text_crop,
+                                                        window, t)
+        scores = clip_towers.apply_clip_ensemble(probs, clip_lg, clip_vd, weight,
+                                                 drop_last=crop_has_bg)
+        return inference_video_topk(scores, masks, topk)
+
+    counts = []
+    for rec, sample in test_videos(cfg, dataset_name, max_videos, dist.rank(), dist.world()):
+        pixels = sample["pixels"]                                  # (T, H, W, 3) numpy
+        t = pixels.shape[0]
+        tb = _bucket(t)
+        frames = torch.from_numpy(pixels).to(device, dtype, non_blocking=True)
+        if tb <= max_frames:
+            fv = torch.arange(tb, device=device) < t
+            out = shot_fn(params, _pad_frames(frames, tb), text, fv)
+            topk_out = ensembled_topk(*out, pixels, t) if ensemble else out
+        else:
+            # longer than the single-shot cap: the reference's windowed
+            # decomposition, no frame dropped
+            logger.info("video %s: t=%d > max_frames=%d, windowed offline eval",
+                        rec["video_id"], t, max_frames)
+            acc, parts = 0.0, []
+            for i in range(0, t, window):
+                keep = min(window, t - i)
+                lg, mk = window_fn(params, _pad_frames(frames[i:i + window], window), text,
+                                   torch.arange(window, device=device) < keep)
+                acc = acc + lg
+                parts.append(mk[:, :keep])
+            masks = torch.cat(parts, dim=1)                        # (Q, T, h, w)
+            masks = torch.cat([masks, masks[:, -1:].expand(-1, tb - t, -1, -1)], dim=1)
+            probs = torch.softmax(acc / t, dim=-1)[..., :-1]
+            topk_out = (ensembled_topk(probs, masks, pixels, t) if ensemble
+                        else inference_video_topk(probs, masks, topk))
+        del frames
+        topk_out["mask_logits"] = topk_out["mask_logits"][:, :t]
+        _process(evaluator, rec, sample, topk_out, counts)
+    return counts
+
+
 def _check_ported(cfg: Config) -> None:
     arch = cfg.model.meta_architecture
     if arch not in _PORTED_ARCHS:
-        raise _not_ported(f"the evaluation of {arch!r}", _ITEM_OF_ARCH.get(arch, 8))
+        raise _not_ported(f"the evaluation of {arch!r}", ITEM_OF_ARCH.get(arch, 8))
 
 
 def evaluate_dataset(
@@ -349,22 +493,30 @@ def evaluate_dataset(
     evaluator's metrics.  Runs on ``device`` (the card unless the caller
     passes ``"cpu"``); the model's parameters are read, never modified.
     ``clip_visual_apply`` (``clip_towers.build_clip_visual``, on the same
-    device) is OpenVIS's classifier, which needs it, and turns on
+    device) is OpenVISOnline's classifier, which needs it, and turns on
     SimpleBaseline's CLIP ensemble where ``clip_adapter.clip_ensemble`` asks
-    for it, as in the JAX engine.  Under a
+    for it, as in the JAX engine; the offline archs evaluate single-shot
+    (offline OpenVIS on its objectness, without the tower).  Under a
     process group every process calls it; rank 0 returns the metrics of all
     the processes' videos, the others ``{}``."""
     _check_ported(cfg)
     arch = cfg.model.meta_architecture
-    if arch.startswith("OpenVIS") and clip_visual_apply is None:
-        raise ValueError("OpenVIS's evaluation needs the CLIP visual tower: pass "
-                         "clip_visual_apply (clip_towers.build_clip_visual)")
     device = resolve_device(device)
     evaluator = make_evaluator(catalog.get(dataset_name))
     dtype = eval_dtype(cfg)
     window = window_size(cfg)
     params = amp_cast(cfg, {n: p.detach().to(device) for n, p in model.named_parameters()})
     text = torch.as_tensor(text_feats).to(device, dtype)
+    if is_single_shot(arch):
+        with torch.inference_mode():
+            counts = _evaluate_single_shot(cfg, model, params, dataset_name, text, max_videos,
+                                           evaluator, clip_visual_apply, device, dtype)
+        return _finalize(cfg, dataset_name, evaluator, counts)
+    # after the single-shot dispatch, as in the JAX engine: offline OpenVIS
+    # evaluates without the tower
+    if arch.startswith("OpenVIS") and clip_visual_apply is None:
+        raise ValueError("OpenVISOnline's evaluation needs the CLIP visual tower: pass "
+                         "clip_visual_apply (clip_towers.build_clip_visual)")
     window_fn = make_window_fn(cfg, model)
     post_fn = make_postprocess_fn(cfg)
     video_fn = crop_fn = None  # crop_fn: the mask-crop CLIP scoring of a video

@@ -2,12 +2,15 @@
 
 Port of ``openvis_tpu/models/meta/openvis.py``: a class-agnostic proposal
 segmenter (the decoder's ``proposal`` head, ``Linear(hidden, 2)``
-objectness) trained with every label zeroed and ``num_classes == 1``
-(``:48-83``); its open-vocabulary classification happens only at
-inference, where every predicted mask is mask-cropped and classified by the
-frozen CLIP tower, and the per-query frame-averaged logits replace the
-objectness scores (``openvis_ov_scores``, ``:86-112``; the eval engine's
-windowed branch is ``engine.make_openvis_fn``).
+objectness, over the frame decoder or, offline, the video decoder) trained
+with every label zeroed and ``num_classes == 1`` (``:48-83``; per frame
+online, clip-level over the video decoder).  OpenVISOnline's
+open-vocabulary classification happens only at inference, where every
+predicted mask is mask-cropped and classified by the frozen CLIP tower, and
+the per-query frame-averaged logits replace the objectness scores
+(``openvis_ov_scores``, ``:86-112``; the eval engine's windowed branch is
+``engine.make_openvis_fn``).  Offline OpenVIS evaluates single-shot on its
+objectness, as the JAX engine does (``engine._evaluate_single_shot``).
 """
 
 from __future__ import annotations

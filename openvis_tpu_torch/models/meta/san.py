@@ -11,6 +11,13 @@ training (``san.py:230-237``).
 The raw (0-255) frames CLIP needs are rebuilt from the normalised input in
 its own dtype, as the JAX package does (the reference keeps a second,
 unnormalised image list, ``san.py:212-219``).
+
+Offline SAN runs the video decoder (``side_adapter_video``): its biases come
+per frame, (L, B, T, nH, Q, h, w), as the frame decoder's do, so the CLIP
+post-encode and the logits, (L, B, T, Q, K+1), are the same code.  Its
+forward and its evaluation are ported; its loss raises
+(``offline_san_loss_error``): the JAX package hands those per-frame logits
+to the clip-level criterion, which fails on them.
 """
 
 from __future__ import annotations
@@ -76,11 +83,23 @@ class SANModel(nn.Module):
         return out
 
 
+def offline_san_loss_error() -> NotImplementedError:
+    return NotImplementedError(
+        "offline SAN (side_adapter_video) cannot be trained: its logits are per frame, "
+        "(L, B, T, Q, K+1), and the JAX package's offline SAN loss hands them to the "
+        "clip-level criterion, which wants (L, B, Q, C+1) and fails "
+        "(openvis_tpu/losses/criterion.py:290); the port adds no loss the JAX package "
+        "lacks (ROADMAP.md §3). Offline SAN evaluates (--eval-only)")
+
+
 def san_loss(generator: torch.Generator, outputs: Dict[str, Any], targets: ClipTargets,
              cfg: ModelConfig, num_text_classes: int, online: bool = True,
              draw_points=sorted_uniform_points) -> Dict[str, torch.Tensor]:
     """The set criterion over every layer's CLIP logits and masks (JAX
     ``san.py:96-127``): the criterion settings and the per-frame reshape of
-    ``simple_baseline_loss``, which it calls."""
+    ``simple_baseline_loss``, which it calls.  Offline (``online=False``) it
+    raises ``offline_san_loss_error()``."""
+    if not online:
+        raise offline_san_loss_error()
     return simple_baseline_loss(generator, outputs, targets, cfg, num_text_classes, online,
                                 draw_points)

@@ -3,8 +3,10 @@
 Port of ``openvis_tpu/models/meta/simple_baseline.py``: a segmenter whose
 decoder head projects queries into CLIP text space; classification logits are
 ``100 * normalize(embeds) @ text.T`` with a learned, normalized no-object row
-appended (``:38-69``), the online training loss that treats every frame as
-its own sample (``:72-132``), and the eval scores (``:135-145``).
+appended (``:38-69``), over the frame decoder (SimpleBaselineOnline) or the
+video decoder (SimpleBaseline: one embedding a query and clip); the training
+loss, per frame online (every frame its own sample) or clip-level offline
+(``:72-132``), and the eval scores (``:135-145``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class SimpleBaselineModel(nn.Module):
         text_full = torch.cat(
             [text_feats, _normalize(self.non_object_embedding)], dim=0
         )                                                    # (K+1, D)
-        embeds_all = out["pred_logits_all"]                  # (L, B, T, Q, D)
+        embeds_all = out["pred_logits_all"]           # (L, B, T, Q, D); video: (L, B, Q, D)
         # bf16 embeddings against f32 text (the AMP train step) compute in
         # f32, as JAX promotes
         dt = torch.promote_types(embeds_all.dtype, text_full.dtype)
@@ -56,11 +58,13 @@ class SimpleBaselineModel(nn.Module):
         return out
 
 
-def eval_scores(pred_logits: torch.Tensor) -> torch.Tensor:
-    """(B, T, Q, K+1) track-aligned logits -> (B, Q, K) softmax probabilities
-    of the frame-averaged logits, without the no-object column (the online
-    branch; the offline video decoder is not ported)."""
-    return torch.softmax(pred_logits.mean(dim=1), dim=-1)[..., :-1]
+def eval_scores(pred_logits: torch.Tensor, online: bool = True) -> torch.Tensor:
+    """-> (B, Q, K) softmax probabilities without the no-object column: online,
+    of the (B, T, Q, K+1) track-aligned logits averaged over the frames;
+    offline, of the video decoder's (B, Q, K+1) logits."""
+    if online:
+        pred_logits = pred_logits.mean(dim=1)
+    return torch.softmax(pred_logits, dim=-1)[..., :-1]
 
 
 def frame_reshape_outputs(
@@ -112,7 +116,8 @@ def simple_baseline_loss(
     online: bool = True,
     draw_points=sorted_uniform_points,
 ) -> Dict[str, torch.Tensor]:
-    """The set criterion over all decoder layers; online: per frame."""
+    """The set criterion over all decoder layers; online: per frame;
+    offline: the video decoder's clip-level (L, B, Q, K+1) logits."""
     s = criterion_settings(cfg, num_text_classes)
     logits_all = outputs["pred_logits_all"]
     masks_all = outputs["pred_masks_all"]

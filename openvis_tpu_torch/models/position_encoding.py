@@ -1,6 +1,7 @@
-"""Sine 2-D position encoding (DETR style, ``normalize=True``, scale 2*pi,
-temperature 10000).  Port of ``openvis_tpu/models/position_encoding.py:21-48``;
-the 1-D and 3-D encodings belong to paths not ported yet."""
+"""Sine 2-D and 3-D position encodings (DETR style, ``normalize=True``, scale
+2*pi, temperature 10000).  Port of ``openvis_tpu/models/position_encoding.py:21-64``
+(the frame decoder's 2-D encoding and the video decoder's 3-D one); the 1-D
+encoding belongs to no ported path."""
 
 from __future__ import annotations
 
@@ -30,3 +31,14 @@ def position_encoding_2d(
     pe_y = _sine_embed(y, num_pos_feats)[:, None, :].expand(h, w, num_pos_feats)
     pe_x = _sine_embed(x, num_pos_feats)[None, :, :].expand(h, w, num_pos_feats)
     return torch.cat([pe_y, pe_x], dim=-1)
+
+
+def position_encoding_3d(t: int, h: int, w: int, hidden_dim: int = 256,
+                         device=None) -> torch.Tensor:
+    """(t, h, w, hidden_dim) f32: the spatial concat(pos_y, pos_x) of
+    ``hidden_dim // 2`` features each, with a temporal pos_z of ``hidden_dim``
+    features **added** to it (the reference's ``PositionEmbeddingSine3D``)."""
+    scale = 2 * math.pi
+    z = (torch.arange(t, dtype=torch.float32, device=device) + 1.0) / (t + 1e-6) * scale
+    pe = position_encoding_2d(h, w, hidden_dim // 2, device)            # (h, w, hidden)
+    return pe[None] + _sine_embed(z, hidden_dim)[:, None, None, :]

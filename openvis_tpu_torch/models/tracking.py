@@ -25,7 +25,7 @@ def track_by_embeds(pred_embeds: torch.Tensor, ema_alpha: float = 1.0) -> torch.
     JAX package; both are optimal."""
     if ema_alpha != 1.0:
         raise NotImplementedError(
-            "EMA tracking (OV2Seg) is not ported yet (ROADMAP.md, queue 1)"
+            "EMA tracking (OV2Seg) is not ported yet (ROADMAP.md, queue 1 item 8.5)"
         )
     embeds = _normalize(pred_embeds.detach())
     b, t, q, c = embeds.shape

@@ -1,11 +1,13 @@
 """Model assembly, the train step and the windowed video eval entry point.
 
-Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), OpenVISOnline,
-SANOnline and BriVIS: ``build_model`` (``:25``), the loss closure
+Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), OpenVIS(Online),
+SAN(Online), BriVIS, VideoMaskFormer and MinVIS: ``build_model`` (``:25``), the loss closure
 ``make_loss_fn`` with its AMP rule (``:70-174``), the train step of
 ``openvis_tpu/parallel/train_step.py`` (``build_train_step``, one process or
 one of several over ``torch.distributed``) and ``make_eval_fn``
-(``:177-203``; OpenVIS evaluates through the engine's CLIP crops).  BriVIS's loss
+(``:177-203``; OpenVISOnline evaluates through the engine's CLIP crops).  The
+offline archs (the video decoder) train clip-level; offline SAN's loss raises
+(``meta/san.py``), so it only evaluates.  BriVIS's loss
 takes its assignment from the frozen image outputs or, with
 ``brivis_image_matcher=False`` (the second half of training), from the
 resampler's last layer.
@@ -28,11 +30,15 @@ from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
 from openvis_tpu_torch.models.meta.brivis import BriVISModel, brivis_loss
 from openvis_tpu_torch.models.meta.openvis import OpenVISModel, openvis_loss
-from openvis_tpu_torch.models.meta.san import SANModel, san_loss
+from openvis_tpu_torch.models.meta.san import SANModel, offline_san_loss_error, san_loss
 from openvis_tpu_torch.models.meta.simple_baseline import (
     SimpleBaselineModel,
     eval_scores,
     simple_baseline_loss,
+)
+from openvis_tpu_torch.models.meta.video_maskformer import (
+    VideoMaskFormerModel,
+    video_maskformer_loss,
 )
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
@@ -63,14 +69,16 @@ def _model_device(model: nn.Module) -> torch.device:
 # the ported architectures: their module and their loss (JAX ``train.py:25-60``, ``:70-113``)
 _ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
           "SimpleBaselineOnline": (SimpleBaselineModel, simple_baseline_loss),
+          "OpenVIS": (OpenVISModel, openvis_loss),
           "OpenVISOnline": (OpenVISModel, openvis_loss),
+          "SAN": (SANModel, san_loss),
           "SANOnline": (SANModel, san_loss),
-          "BriVIS": (BriVISModel, brivis_loss)}
-# the ROADMAP.md queue 1 item that ports each other architecture: the video
-# decoder and the single-shot eval (8.3), offline SAN (8.4), OV2Seg (8.5),
-# MasQCLIP (8.7)
-ITEM_OF_ARCH = {"VideoMaskFormer": "8.3", "MinVIS": "8.3", "OpenVIS": "8.3", "SAN": "8.4",
-                "OV2Seg": "8.5", "OV2SegOnline": "8.5", "MasQCLIP": "8.7"}
+          "BriVIS": (BriVISModel, brivis_loss),
+          "VideoMaskFormer": (VideoMaskFormerModel, video_maskformer_loss),
+          "MinVIS": (VideoMaskFormerModel, video_maskformer_loss)}
+# the ROADMAP.md queue 1 item that ports each other architecture: OV2Seg
+# (8.5), MasQCLIP (8.7)
+ITEM_OF_ARCH = {"OV2Seg": "8.5", "OV2SegOnline": "8.5", "MasQCLIP": "8.7"}
 
 
 def build_model(cfg: Config, device="cuda") -> nn.Module:
@@ -117,16 +125,19 @@ def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
     return to f32, except the mask-logit stack, which stays bf16 and is
     sampled under the f32 policy; other outputs pass through.  BriVIS's
     metrics add ``bc_loss`` and ``htm_loss``; ``brivis_image_matcher``
-    picks its matcher's source."""
+    picks its matcher's source.  Offline SAN raises
+    (``meta.san.offline_san_loss_error``)."""
     name = cfg.model.meta_architecture
     if name not in _ARCHS:
         raise NotImplementedError(f"the {name!r} loss is not ported yet (ROADMAP.md)")
+    online = is_online(cfg)
+    if name == "SAN" and not online:
+        raise offline_san_loss_error()
     compute_losses = _ARCHS[name][1]
     extra_metrics = ()
     if name == "BriVIS":
         compute_losses = functools.partial(compute_losses, image_matcher=brivis_image_matcher)
         extra_metrics = ("bc_loss", "htm_loss")
-    online = is_online(cfg)
     amp = cfg.solver.amp
     to_bf16 = {n for n, p in model.named_parameters()
                if p.dtype == torch.float32 and not _keeps_f32(flax_path(n, p.dim()))}
@@ -169,8 +180,10 @@ def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
     Under a process group the batch is this process's slice of the global
     batch and the metrics are the global batch's.  The model is moved to
     ``device``; the batch must lie there too.  BriVIS's matcher takes the
-    frozen image outputs; ``use_brivis_matcher`` switches it."""
+    frozen image outputs; ``use_brivis_matcher`` switches it.  Offline SAN
+    raises (``meta.san.offline_san_loss_error``) before anything moves."""
     device = resolve_device(device)
+    loss_fn = make_loss_fn(cfg, model, num_text_classes, draw_points)
     model.to(device).train()
     labels = config_labels(cfg, model)
     stop_frozen_gradients(model, labels)
@@ -179,7 +192,6 @@ def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
     if bad:
         raise TypeError(f"the train step needs f32 master parameters, got {bad[:3]}")
     opt = AdamW(cfg, params, labels)
-    loss_fn = make_loss_fn(cfg, model, num_text_classes, draw_points)
     return TrainStep(loss_fn, TrainState(model, opt), cfg.seed)
 
 
@@ -195,10 +207,12 @@ def use_brivis_matcher(step: TrainStep, cfg: Config, num_text_classes: int,
 def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
     """Returns f(frames (T, H, W, 3), text_feats (K, D)) -> top-k dict for one
     video window (B = 1).  Runs on the model's device; the inputs are moved
-    there.  Online (frame-decoder) eval: ``build_model`` refuses the video
-    decoder; BriVIS's decoder is the frame one, so it takes this branch, as
-    in the JAX package."""
+    there.  The frame decoder (online) tracks by the query embeddings and
+    averages the aligned logits over the frames; the video decoder (offline)
+    scores its clip-level logits (offline SAN: its per-frame logits' mean).  BriVIS's decoder is the frame one, so it
+    takes the online branch, as in the JAX package."""
     topk = cfg.model.test.topk_per_video
+    online = is_online(cfg)
     model = eval_model(model)
 
     @torch.inference_mode()
@@ -207,6 +221,12 @@ def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
         frames, text_feats = frames.to(dev), text_feats.to(dev)
         t = frames.shape[0]
         out = model(frames, t, text_feats)
+        if not online:
+            # clip-level logits (B, Q, C); SAN's video decoder gives per-frame
+            # CLIP logits (B, T, Q, C): their mean over the frames
+            logits = out["pred_logits"]
+            scores = eval_scores(logits, online=logits.dim() == 4)[0]     # (Q, K)
+            return inference_video_topk(scores, out["pred_masks"][0], topk)
         # align logits only; masks are aligned inside the top-k gather
         indices = track_by_embeds(out["pred_embeds"])
         logits = apply_track_indices(out["pred_logits"], indices)

@@ -189,20 +189,14 @@ def test_engine_refuses_what_is_not_ported(setup):
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=lambda x: x,
                                 device="cpu")
-    # BriVIS and OpenVISOnline are ported (tests/test_torch_port_brivis_engine.py,
-    # tests/test_torch_port_openvis_engine.py); offline OpenVIS (the single-shot
-    # eval) and OV2Seg are not
-    for arch, item in (("OpenVIS", "8.3"), ("OV2SegOnline", "8.5")):
+    # BriVIS, OpenVISOnline and the offline archs are ported
+    # (tests/test_torch_port_brivis_engine.py, tests/test_torch_port_openvis_engine.py,
+    # tests/test_torch_port_offline_engine.py); OV2Seg and MasQCLIP are not
+    for arch, item in (("OV2SegOnline", "8.5"), ("OV2Seg", "8.5"), ("MasQCLIP", "8.7")):
         unported = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, meta_architecture=arch))
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             engine.evaluate_dataset(unported, pm, DATASET, text, device="cpu")
-    # SANOnline is ported (tests/test_torch_port_san_engine.py); offline SAN
-    # needs the video decoder
-    offline_san = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="SAN"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        engine.evaluate_dataset(offline_san, pm, DATASET, text, device="cpu")
     # BURST evaluation is ported (tests/test_torch_port_burst.py)
     burst = engine.make_evaluator(catalog.get("burst_val"))
     assert isinstance(burst, BURSTEvaluator)

@@ -1,7 +1,7 @@
 """PyTorch port, OpenVISOnline against the JAX package on the CPU in f32: the
 proposal head's tree and parameter groups, the forward, the class-agnostic
-loss and its gradients, ``openvis_ov_scores`` with a CLIP tower; the
-offline archs still refused; then the CLI with an OpenVISOnline yaml.
+loss and its gradients, ``openvis_ov_scores`` with a CLIP tower; what
+stays unported refused; then the CLI with an OpenVISOnline yaml.
 
 Shapes: the tiny segmenter of ``tests/test_torch_parity_e2e.py`` (64x96
 frames, 2 encoder and 2 decoder layers, Q=8, hidden 64) with the proposal
@@ -268,17 +268,32 @@ def test_openvis_ov_scores_match_jax(tmp_path):
     np.testing.assert_allclose(scores.sum(-1).numpy(), 1.0, rtol=1e-6)
 
 
-def test_offline_openvis_and_the_video_decoders_raise_item_8():
+def test_ov2seg_masqclip_and_the_unported_decoders_raise_their_items():
+    """Offline OpenVIS builds over the video decoder (its parity:
+    tests/test_torch_port_offline.py); OV2Seg, MasQCLIP, their decoder and
+    backbone, the zero-shot decoders and Swin raise naming their ROADMAP.md
+    items."""
     cfg = openvis_cfg(Config)
-    for arch, item in (("OpenVIS", "8.3"), ("OV2SegOnline", "8.5")):
-        offline = dataclasses.replace(cfg, model=dataclasses.replace(
+    offline = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, meta_architecture="OpenVIS", transformer_decoder=dataclasses.replace(
+            cfg.model.transformer_decoder, name="video_proposal")))
+    assert train.build_model(offline, device="cpu").segmenter.video
+    for arch, item in (("OV2SegOnline", "8.5"), ("OV2Seg", "8.5"), ("MasQCLIP", "8.7")):
+        unported = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, meta_architecture=arch))
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            train.build_model(offline, device="cpu")
-    video = dataclasses.replace(cfg.model, transformer_decoder=dataclasses.replace(
-        cfg.model.transformer_decoder, name="video_proposal"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Segmenter(video)
+            train.build_model(unported, device="cpu")
+    for name, item in (("ov2seg_frame", "8.5"), ("frame_zero_shot", "8.8"),
+                       ("video_zero_shot", "8.8")):
+        decoder = dataclasses.replace(cfg.model, transformer_decoder=dataclasses.replace(
+            cfg.model.transformer_decoder, name=name))
+        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+            Segmenter(decoder)
+    for name, item in (("timm_resnet", "8.5"), ("swin", "8.6")):
+        backbone = dataclasses.replace(cfg.model, backbone=dataclasses.replace(
+            cfg.model.backbone, name=name))
+        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+            Segmenter(backbone)
 
 
 OPENVIS_YAML = CFG_YAML.replace("meta_architecture: SimpleBaselineOnline",

@@ -285,15 +285,22 @@ def test_san_amp_loss_within_bf16_bound_of_jax(san):
 
 
 def test_offline_san_raises_its_roadmap_item():
+    """Offline SAN builds over the video decoder and evaluates (its parity:
+    tests/test_torch_port_offline.py); its train step raises, naming the
+    JAX package's failing criterion and ROADMAP.md §3; Swin raises naming
+    item 8.6."""
     cfg = san_cfg(Config)
     offline = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="SAN"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        train.build_model(offline, device="cpu")
-    video = dataclasses.replace(cfg.model, transformer_decoder=dataclasses.replace(
-        cfg.model.transformer_decoder, name="side_adapter_video"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Segmenter(video)
+        cfg.model, meta_architecture="SAN", transformer_decoder=dataclasses.replace(
+            cfg.model.transformer_decoder, name="side_adapter_video")))
+    model = train.build_model(offline, device="cpu")
+    assert model.segmenter.video
+    with pytest.raises(NotImplementedError, match=r"criterion\.py:290.*ROADMAP\.md §3"):
+        train.build_train_step(offline, model, K, device="cpu")
+    swin = dataclasses.replace(offline.model, backbone=dataclasses.replace(
+        offline.model.backbone, name="swin"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8.6"):
+        Segmenter(swin)
 
 
 SAN_YAML = CFG_YAML.replace("meta_architecture: SimpleBaselineOnline",

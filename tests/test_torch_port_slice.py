@@ -120,13 +120,15 @@ def test_forward_and_eval_match_jax_bf16(setup):
 
 def test_port_runs_without_jax_in_fresh_interpreter():
     """The port imports neither JAX nor the JAX package, through an eval
-    window and a train step, and its CPU path launches no kernel."""
+    window (frame and video decoder) and a train step, and its CPU path
+    launches no kernel."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         sys.path.insert(0, {str(REPO)!r})
         import torch
-        from openvis_tpu_torch import Config, train
+        from openvis_tpu_torch import Config, engine, train
         from openvis_tpu_torch.convert import init_params
+        from openvis_tpu_torch.models.meta import video_maskformer
         from openvis_tpu_torch.ops import hungarian_cuda, msda_cuda, point_sample_cuda
         from openvis_tpu_torch.structures import ClipTargets
         cfg = Config()
@@ -147,6 +149,16 @@ def test_port_runs_without_jax_in_fresh_interpreter():
             torch.randn(3, 64, 96, 3, generator=g), torch.randn(3, 16, generator=g))
         assert out["mask_logits"].shape == (10, 3, 16, 24), out["mask_logits"].shape
         assert all(torch.isfinite(v.float()).all() for v in out.values())
+        # the offline path: the video decoder, clip-level scores
+        vcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, meta_architecture="SimpleBaseline",
+            transformer_decoder=dataclasses.replace(cfg.model.transformer_decoder,
+                                                    name="video_embedding")))
+        vmodel = init_params(train.build_model(vcfg, device="cpu"), seed=0)
+        vout = train.make_eval_fn(vcfg, vmodel)(
+            torch.randn(3, 64, 96, 3, generator=g), torch.randn(3, 16, generator=g))
+        assert vout["mask_logits"].shape == (10, 3, 16, 24), vout["mask_logits"].shape
+        assert engine.is_single_shot("SimpleBaseline") and video_maskformer.VideoMaskFormerModel
         step = train.build_train_step(cfg, model, 3, device="cpu")
         batch = dict(pixels=torch.randn(1, 2, 64, 96, 3, generator=g),
                      text_feats=torch.randn(3, 16, generator=g),

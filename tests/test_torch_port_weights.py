@@ -3,8 +3,8 @@ against ``tools/convert_weights.py`` on the synthetic d2 Mask2Former state
 dict of ``tests/test_convert_weights.py`` (with SimpleBaseline's CLIP
 embedding head in place of the COCO class head), the same tree leaf for leaf,
 loaded strictly into the port's segmenter; the ``.pkl``/``.pth`` readers, the
-legacy-key migration, the CLI's pretrained init, and the readers that are not
-ported yet."""
+legacy-key migration, the video decoder filled strictly, the CLI's pretrained
+init, and the readers that are not ported yet."""
 
 import dataclasses
 import pickle
@@ -91,6 +91,24 @@ def test_pkl_and_pth_readers_and_legacy_keys(state, tmp_path):
         assert set(got) == set(ref), path
         for k, v in ref.items():
             assert torch.equal(got[k], v), (path, k)
+
+
+def test_pkl_reader_fills_the_video_decoder_strictly(state, tmp_path):
+    """The video decoder's parameters have the frame decoder's names: a d2
+    checkpoint fills offline SimpleBaseline's segmenter strictly."""
+    path = tmp_path / "m2f.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"model": state}, f)
+    cfg = tiny_config(str(path))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, meta_architecture="SimpleBaseline",
+        transformer_decoder=dataclasses.replace(cfg.model.transformer_decoder,
+                                                name="video_embedding")))
+    model = train.build_model(cfg, device="cpu")
+    assert model.segmenter.video
+    sd = weights.segmenter_state(str(path), cfg)
+    model.segmenter.load_state_dict(sd, strict=True)
+    assert set(sd) == set(model.segmenter.state_dict())
 
 
 def test_cli_pretrained_init_grafts_the_segmenter(state, tmp_path):

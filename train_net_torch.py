@@ -23,6 +23,14 @@ on the CPU (``--device cpu``) or on N processes over ``torch.distributed``
   * only rank 0 writes checkpoints and metrics; the other processes wait at a
     barrier.
 
+The offline (clip-level) recipes train and evaluate as the online ones:
+``simplebsl_R50_bs8_12000st.yaml`` (the video decoder, clip-level loss,
+single-shot eval through the CLIP ensemble), the two ``openvis_R50_bs16_6000st.yaml``
+(evaluated single-shot on the objectness; the tower is still read, as the
+JAX CLI reads it) and, ``--eval-only``, ``san_R50_bs16_6000st.yaml``: offline
+SAN's train step raises (``models/meta/san.py``), and ``--weights`` may name a
+SANOnline run's checkpoints, whose parameter tree is the same.
+
 The text bank (``build_text_bank``), SAN's frozen tower
 (``model.clip_adapter.visual``) and, for the SimpleBaseline CLIP ensemble, the
 frozen CLIP visual tower of OpenVIS's mask-crop scoring and of the SimpleBaseline CLIP
