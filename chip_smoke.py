@@ -158,13 +158,36 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      SimpleBaseline recipe as users train it (8 clips of 2 frames, 2 steps)
      and ``--eval-only``; offline SAN ``--eval-only`` on phase 13's SANOnline
      checkpoint
+  18. OV2Seg with its recipe's model
+     (``configs/openvoc_ytvis_coco/ov2seg_online_R50.yaml``: the two-head
+     decoder, D = 512): three 10x384x640 bf16 windows through
+     ``make_eval_fn`` (padded to 16 frames, the EMA chain: 16 dependent K4
+     launches a window, the gated top-k) with their split; an f32 window at
+     192x320 on the card against the CPU; the train step at 1x2x480x864 with
+     K1-K6 on its recorded inputs against the plain versions, and its f32
+     loss and gradients at 1x2x192x320, card against CPU; the engine over
+     phase 10's dataset (K4 200 launches: each video's chain over
+     ``_bucket(t)`` frames), K4 on all its costs against ``hungarian_plain``;
+     the 133-frame video's chain alone (136 launches), timed; one f32 video
+     card against CPU; the CLI (16 clips of 2 frames, 2 steps) and
+     ``--eval-only``. Then the SAN Swin-B recipes
+     (``configs/openvoc_ytvis_coco/swin/``: Swin-B, windows of 12, a random
+     ViT-L/14@336px side CLIP split at block 21): three 10x480x864 bf16
+     windows with their split; the train step at 1x2x480x864 with the
+     recipe's drop path; the Swin segmenter (Swin-B cut to 2 blocks a stage
+     under the R50 SAN recipe's ViT-B/16) in f32 at 192x320, window and step
+     (drop path 0), card against CPU; the CLI at 2 clips of 2 frames from a
+     stand-in init checkpoint (``_swin_init``) and ``--eval-only``;
+     ``san_SwinB`` ``--eval-only`` on its checkpoint; 2 ``brivis_SwinB``
+     stage-2 steps from it and ``--eval-only``
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
 engine's whole-video run of phase 10, the CLI's training and eval runs of
 phase 11, the ensemble's run of phase 12, SAN's window, train step,
 engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15,
-the BURST engine and CLI runs of phase 16 and the offline paths of phase 17),
+the BURST engine and CLI runs of phase 16, the offline paths of phase 17 and
+OV2Seg's and the Swin recipes' of phase 18),
 its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
@@ -214,8 +237,10 @@ from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
 from openvis_tpu_torch.models.clip import synthetic as clip_synthetic
 from openvis_tpu_torch.models.clip.model import model_shape
 from openvis_tpu_torch.models.meta import brivis as brivis_meta
+from openvis_tpu_torch.models.meta import ov2seg as ov2seg_meta
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule
 from openvis_tpu_torch.models.postprocess import inference_video_topk
+from openvis_tpu_torch.models.segmenter import Segmenter
 from openvis_tpu_torch.ops import cuda_build, hungarian_cuda, msda_cuda, point_sample_cuda
 from openvis_tpu_torch.ops.hungarian import hungarian_plain
 from openvis_tpu_torch.ops.msda import ms_deform_attn_bwd_plain, ms_deform_attn_plain
@@ -454,6 +479,34 @@ SAN_OFFLINE_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "san_R50_bs16
 OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W = 128, 480, 864  # test.max_frames, the canvas
 OFFLINE_CHECK_T = 5       # 17.2: one shot padded to 8 frames, card against CPU
 OFFLINE_CLI_STEPS = 2
+# phase 18: OV2Seg with its recipe's model (ResNet-50, 6 encoder layers, 100
+# queries, the two-head decoder with D = 512; tracked by its EMA chain, one K4
+# launch a frame of the video padded to _bucket(T)), and the SAN Swin-B
+# recipes (Swin-B: embed 128, depths 2-2-18-2, windows of 12; a random
+# ViT-L/14@336px side CLIP split at block 21 with taps 6, 12, 18)
+OV2SEG_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "ov2seg_online_R50.yaml")
+OV2SEG_EMA_T = 133        # the engine's long video: _bucket(133) = 136 solves
+OV2SEG_CLI_STEPS = 2
+SWIN_DIR = os.path.join("configs", "openvoc_ytvis_coco", "swin")
+SAN_SWIN_CONFIG = os.path.join(SWIN_DIR, "san_online_SwinB_bs16_6000st_ViT-L-336.yaml")
+SAN_SWIN_OFFLINE_CONFIG = os.path.join(SWIN_DIR, "san_SwinB_bs16_6000st_ViT-L-336.yaml")
+BRIVIS_SWIN_CONFIG = os.path.join(SWIN_DIR, "brivis_SwinB_bs16_6000st_ViT-L-336.yaml")
+SWIN_CLIP = "ViT-L/14@336px"
+# the recipes' pretrained/m2f_swinB.msgpack is not in the repository: the
+# CLI trains from a stand-in (``_swin_init``), the offline eval needs none
+SWIN_OVERRIDES = ("model.weights=",)
+SWIN_WINDOW_H, SWIN_WINDOW_W = 480, 864   # min_size_test 480 on the 480x864 canvas
+# the CLI as the reference trains it a card: 16 clips over 8 GPUs, 2 a card
+SWIN_CLI_CLIPS, SWIN_CLI_STEPS = 2, 2
+# the f32 card-against-CPU checks: the SAN R50 recipe's ViT-B/16 split (phase
+# 11's CLIP files) over the Swin-B trunk cut to 2 blocks a stage, drop path 0
+SWIN_CHECK_OVERRIDES = ("model.backbone.name=swin", "model.backbone.swin_embed_dim=128",
+                        "model.backbone.swin_depths=[2,2,2,2]",
+                        "model.backbone.swin_num_heads=[4,8,16,32]",
+                        "model.backbone.swin_window_size=12", "model.backbone.swin_pretrain_img_size=384",
+                        "model.backbone.swin_drop_path_rate=0.0")
+SWIN_TRAINED = ("segmenter.backbone.stage2_block17.attn.relative_position_bias_table",
+                "segmenter.backbone.patch_embed.weight", "clip_adapter.attn_proj0.weight")
 
 
 _START = time.perf_counter()
@@ -1297,9 +1350,9 @@ def _hold_window_to_plain(phase, cfg, cpu_model, h, w, make_eval=None, text_dim=
         raise AssertionError(f"{phase}: the card's window skipped a kernel: {launches}")
 
 
-def _train_batch(rng, h, w, n, device, t=TRAIN_T):
+def _train_batch(rng, h, w, n, device, t=TRAIN_T, text_dim=TEXT_DIM):
     """bench.py's synthetic train batch: 1 clip of ``t`` frames, n targets
-    with 10 % foreground masks, all valid."""
+    with 10 % foreground masks, all valid; text rows ``text_dim`` wide."""
     pixels = torch.from_numpy(rng.randn(1, t, h, w, 3).astype(np.float32))
     targets = ClipTargets(
         labels=torch.from_numpy(rng.randint(0, K_CLASSES, (1, n))),
@@ -1308,7 +1361,7 @@ def _train_batch(rng, h, w, n, device, t=TRAIN_T):
         frame_valid=torch.ones(1, n, t, dtype=torch.bool),
     )
     return {"pixels": pixels.to(device), "targets": targets.to(device),
-            "text_feats": torch.from_numpy(_text(rng)).to(device)}
+            "text_feats": torch.from_numpy(_text(rng, text_dim)).to(device)}
 
 
 def _train_launches(cfg, h, w, steps, t=TRAIN_T):
@@ -1408,11 +1461,11 @@ def _loss_and_grads(cfg, model, batch, records):
         records.append((cost.cpu(), cols.cpu()))
         return cols
 
-    criterion.batched_hungarian = recording
+    criterion.batched_hungarian = ov2seg_meta.batched_hungarian = recording
     try:
         loss, metrics = loss_fn(params, batch, torch.Generator().manual_seed(SEED))
     finally:
-        criterion.batched_hungarian = solve
+        criterion.batched_hungarian = ov2seg_meta.batched_hungarian = solve
     grads = torch.autograd.grad(loss, [params[n] for n in names])
     return loss.item(), {k: v.item() for k, v in metrics.items()}, dict(zip(names, grads))
 
@@ -1709,7 +1762,8 @@ def _engine_split(spans, wall):
 
 def _engine_expected(cfg, launches, videos=None):
     """K1 once an encoder layer a forward, no other kernel but K4 once a
-    tracked video of more than one frame; ``videos`` (h, w, frames,
+    tracked video of more than one frame (OV2Seg: ``_bucket(t)`` times, its
+    EMA chain); ``videos`` (h, w, frames,
     instances) default to ENGINE_VIDEOS.  The windowed path runs a forward
     a window; the single-shot path (the offline archs) one a video of
     ``_bucket(t) <= test.max_frames`` frames, else one a window, and tracks
@@ -1721,9 +1775,12 @@ def _engine_expected(cfg, launches, videos=None):
         shots = sum(1 if engine._bucket(t) <= cfg.model.test.max_frames else -(-t // window)
                     for _, _, t, _ in videos)
         return {**{k: 0 for k in launches}, "msda_fwd": enc * shots}
+    # OV2Seg's EMA chain: one solve a frame of the video padded to _bucket(t)
+    tracked = ((lambda t: engine._bucket(t)) if cfg.model.meta_architecture.startswith("OV2Seg")
+               else (lambda t: int(t > 1)))
     return {**{k: 0 for k in launches},
             "msda_fwd": enc * sum(-(-t // window) for _, _, t, _ in videos),
-            "hungarian": sum(t > 1 for _, _, t, _ in videos)}
+            "hungarian": sum(tracked(t) for _, _, t, _ in videos)}
 
 
 def _write_engine_dataset(root):
@@ -2794,11 +2851,12 @@ def phase_san_engine(card, clip, tree):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _recipe_cli(card, clip, config, steps, label, keep_checkpoints=None):
+def _recipe_cli(card, clip, config, steps, label, keep_checkpoints=None, overrides=()):
     """The CLI with the recipe ``config`` as users train it (16 clips of 2
     frames a step), ``steps`` steps and a checkpoint, then ``--eval-only``;
     returns the launches of the two runs.  ``keep_checkpoints``: a directory
-    the run's checkpoint directory moves to."""
+    the run's checkpoint directory moves to; ``overrides``: more dotted
+    config overrides."""
     import train_net_torch as cli
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2821,7 +2879,7 @@ def _recipe_cli(card, clip, config, steps, label, keep_checkpoints=None):
                                     f"model.clip_adapter.bpe_vocab={clip[1]}",
                                     f"solver.max_iter={steps}",
                                     f"solver.checkpoint_period={steps}",
-                                    f"output_dir={out}"]
+                                    f"output_dir={out}", *overrides]
 
         def run(*flags):
             reset_counts()
@@ -3214,18 +3272,21 @@ def phase_brivis_engine(card, clip, tree):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_brivis_cli(card, clip, stage1):
+def phase_brivis_cli(card, clip, stage1, config=BRIVIS_CONFIG, label="brivis",
+                     steps=BRIVIS_CLI_STEPS, overrides=()):
     """14.6: the CLI with the BriVIS recipe as users run stage 2 (16 clips of
     3 frames a step) from the SANOnline checkpoint directory ``stage1``
     (phase 13's CLI run), BRIVIS_CLI_STEPS steps across the matcher switch
     and a checkpoint, then ``--eval-only``; the grafted segmenter and
     clip_adapter equal the stage-1 checkpoint's bit for bit, the resampler
-    moved from its init.  Returns the launches of the two runs."""
+    moved from its init.  Returns the launches of the two runs.  18.10 runs
+    it with ``config`` brivis_SwinB on the Swin CLI's checkpoint, ``steps``
+    steps and ``overrides``."""
     import train_net_torch as cli
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    root = tempfile.mkdtemp(prefix="chip_smoke_brivis_cli_")
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_cli_")
     saves, switched = [], []
     orig_save, orig_switch = cli.save_checkpoint, cli.use_brivis_matcher
 
@@ -3246,14 +3307,14 @@ def phase_brivis_cli(card, clip, stage1):
         common = _cli_data(root) + [f"model.weights={stage1}",
                                     f"model.clip_adapter.weights={clip[0]}",
                                     f"model.clip_adapter.bpe_vocab={clip[1]}",
-                                    f"solver.max_iter={BRIVIS_CLI_STEPS}",
-                                    f"solver.checkpoint_period={BRIVIS_CLI_STEPS}",
-                                    f"output_dir={out}"]
+                                    f"solver.max_iter={steps}",
+                                    f"solver.checkpoint_period={steps}",
+                                    f"output_dir={out}", *overrides]
 
         def run(*flags):
             reset_counts()
             t0 = time.perf_counter()
-            cli.main(["--config-file", BRIVIS_CONFIG, *flags, *common])
+            cli.main(["--config-file", config, *flags, *common])
             torch.cuda.synchronize()
             return time.perf_counter() - t0, read_counts()
 
@@ -3261,9 +3322,9 @@ def phase_brivis_cli(card, clip, stage1):
         wall, launches = run()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         lines = _metrics_lines(out)
-        cfg = load_config(BRIVIS_CONFIG, common)
+        cfg = load_config(config, common)
         t = cfg.input.sampling_frame_num
-        expected = _train_launches(cfg, *cfg.input.pad_size, BRIVIS_CLI_STEPS, t)
+        expected = _train_launches(cfg, *cfg.input.pad_size, steps, t)
         steps_ms = [r["step_s"] * 1e3 for r in lines]
         finite = all(np.isfinite(r[k]) for r in lines
                      for k in ("total_loss", "loss_ce", "loss_mask", "loss_dice", "bc_loss",
@@ -3278,7 +3339,7 @@ def phase_brivis_cli(card, clip, stage1):
         fresh = init_params(train.build_model(cfg, device="cpu"), seed=cfg.seed).state_dict()
         moved = sum(not torch.equal(fresh[k], stage2[k]) for k in fresh
                     if k.startswith(("resampler.", "brownian_proj.")))
-        emit({"phase": "brivis_cli_train", "config": BRIVIS_CONFIG, "stage1": "phase 13's CLI run",
+        emit({"phase": f"{label}_cli_train", "config": config, "stage1": "a SANOnline CLI run",
               "batch": [cfg.solver.ims_per_batch, t],
               "points": cfg.model.criterion.train_num_points, "amp": cfg.solver.amp,
               "steps": [r["step"] for r in lines], "ms_per_step": steps_ms,
@@ -3291,11 +3352,10 @@ def phase_brivis_cli(card, clip, stage1):
               "peak_mem_gib": peak, "wall_s": wall, "launches": launches,
               "expected_launches": expected, "card": card})
         if launches != expected:
-            raise AssertionError(f"BriVIS CLI train launches {launches} != {expected}")
-        if [r["step"] for r in lines] != list(range(1, BRIVIS_CLI_STEPS + 1)) or not finite:
-            raise AssertionError(f"the BriVIS CLI's metrics.jsonl is not {BRIVIS_CLI_STEPS} "
-                                 "finite steps")
-        if switched != [[BRIVIS_CLI_STEPS // 2, False]]:
+            raise AssertionError(f"{label} CLI train launches {launches} != {expected}")
+        if [r["step"] for r in lines] != list(range(1, steps + 1)) or not finite:
+            raise AssertionError(f"the {label} CLI's metrics.jsonl is not {steps} finite steps")
+        if switched != [[steps // 2, False]]:
             raise AssertionError(f"the BriVIS matcher switched at {switched}")
         if not grafted or not graft_equal or not moved:
             raise AssertionError("the grafted stage 1 changed or the resampler did not move")
@@ -3305,12 +3365,12 @@ def phase_brivis_cli(card, clip, stage1):
         with open(os.path.join(out, f"metrics_{ds}.json")) as f:
             metrics = json.load(f)
         expected2 = _engine_expected(cfg, launches2, CLI_EVAL_VIDEOS)
-        emit({"phase": "brivis_cli_eval", "metrics": metrics, "wall_s": wall2,
+        emit({"phase": f"{label}_cli_eval", "metrics": metrics, "wall_s": wall2,
               "launches": launches2, "expected_launches": expected2, "card": card})
         if not metrics or not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"the BriVIS CLI's eval wrote {metrics}")
         if launches2 != expected2:
-            raise AssertionError(f"BriVIS CLI eval launches {launches2} != {expected2}")
+            raise AssertionError(f"{label} CLI eval launches {launches2} != {expected2}")
         return launches, launches2
     finally:
         cli.save_checkpoint, cli.use_brivis_matcher = orig_save, orig_switch
@@ -4220,31 +4280,32 @@ def phase_video_maskformer_minvis(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_san_offline_cli(card, clip, stage1):
-    """17.8b: ``train_net_torch.py --eval-only`` with san_R50_bs16_6000st.yaml
-    on phase 13's SANOnline checkpoint ``stage1`` (the same parameter tree):
-    the single-shot eval over phase 11's eval set.  Returns its launches."""
+def phase_san_offline_cli(card, clip, stage1, config=SAN_OFFLINE_CONFIG, label="san_offline",
+                          overrides=()):
+    """17.8b / 18.9: ``train_net_torch.py --eval-only`` with the offline SAN
+    recipe ``config`` (san_R50_bs16_6000st.yaml) on a SANOnline checkpoint
+    ``stage1`` (the same parameter tree; phase 13's): the single-shot eval
+    over phase 11's eval set.  Returns its launches."""
     import train_net_torch as cli
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_san_offline_cli_")
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_cli_")
     try:
         out = os.path.join(root, "out")
         common = _cli_data(root) + [f"model.clip_adapter.weights={clip[0]}",
                                     f"model.clip_adapter.bpe_vocab={clip[1]}",
-                                    f"output_dir={out}"]
+                                    f"output_dir={out}", *overrides]
         reset_counts()
         t0 = time.perf_counter()
-        cli.main(["--config-file", SAN_OFFLINE_CONFIG, "--eval-only", "--weights", stage1,
-                  *common])
+        cli.main(["--config-file", config, "--eval-only", "--weights", stage1, *common])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
-        cfg = load_config(SAN_OFFLINE_CONFIG, common)
+        cfg = load_config(config, common)
         with open(os.path.join(out, f"metrics_{cfg.datasets.test[0]}.json")) as f:
             metrics = json.load(f)
         expected = _engine_expected(cfg, launches, CLI_EVAL_VIDEOS)
-        emit({"phase": "san_offline_cli_eval", "config": SAN_OFFLINE_CONFIG,
-              "weights": "phase 13's SANOnline checkpoint", "metrics": metrics, "wall_s": wall,
+        emit({"phase": f"{label}_cli_eval", "config": config,
+              "weights": "a SANOnline checkpoint of the CLI", "metrics": metrics, "wall_s": wall,
               "launches": launches, "expected_launches": expected, "card": card})
         if not metrics or not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"the offline SAN CLI eval wrote {metrics}")
@@ -4265,6 +4326,405 @@ def phase_offline(card, clip, stage1):
     launches["offline_cli_train"], launches["offline_cli_eval"] = _recipe_cli(
         card, clip, OFFLINE_CONFIG, OFFLINE_CLI_STEPS, "offline")
     launches["san_offline_cli_eval"] = phase_san_offline_cli(card, clip, stage1)
+    return launches
+
+
+def _ov2seg_config(clip, *overrides):
+    """The OV2Seg recipe with the CLIP files ``clip`` (weights, bpe) and ``overrides``."""
+    return load_config(OV2SEG_CONFIG, [f"model.clip_adapter.weights={clip[0]}",
+                                       f"model.clip_adapter.bpe_vocab={clip[1]}", *overrides])
+
+
+def phase_ov2seg_window(card, cfg):
+    """18.1: OV2Seg's eval window at full width, bf16: three 10x384x640 windows
+    through ``train.make_eval_fn`` (padded to 16 frames, the EMA chain, the
+    gated top-k) with their split; returns the launches."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
+        dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    clips = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    outs, ms, peak, launches = _timed_shots(model, cfg, clips, text)
+    with StageSpans({"segmenter": (model.segmenter, "forward"),
+                     "ema_tracking": (engine, "track_by_embeds")}) as spans:
+        timed = spans.window(train.make_eval_fn(cfg, model))
+        for x in clips:
+            timed(x, text)
+    split = spans.split_ms("scores_topk_gate", NUM_WINDOWS)
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"OV2Seg window {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS,
+                "hungarian": engine._bucket(t) * NUM_WINDOWS}
+    emit({"phase": "ov2seg_window_full_width", "config": OV2SEG_CONFIG, "dtype": "bfloat16",
+          "windows": NUM_WINDOWS, "frames_per_window": t, "padded_to": engine._bucket(t),
+          "frame_hw": [h, w], "ms_per_window": ms, "frames_per_s": t / (ms / 1e3),
+          "split_ms_per_window": split, "peak_mem_gib": peak, "launches": launches,
+          "expected_launches": expected, "card": card})
+    if launches != expected:
+        raise AssertionError(f"OV2Seg window launches {launches} != {expected}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ov2seg_vs_plain(cfg):
+    """18.2: one f32 OV2Seg window at 192x320 (2 frames padded to 8), card
+    (kernels) against CPU (plain), phase 7's bounds."""
+    cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 1)
+    _hold_window_to_plain("ov2seg_kernels_vs_plain", cfg, cpu_model, CHECK_TRAIN_H, CHECK_TRAIN_W)
+
+
+def phase_ov2seg_train(card, cfg):
+    """18.3: OV2Seg's train step at full width (1x2x480x864, N=40, bf16 AMP,
+    f32 masters): one warm-up and three timed steps, the launches of K1-K6,
+    K5's call shapes (phase 5's: every frame its own sample), the heads
+    moved, K1-K6 on the warm-up step's recorded inputs against their plain
+    versions.  Returns the launches of the timed steps."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+    heads = model.segmenter.predictor.heads
+    trained = {"zs_fc2.weight": heads.zs_fc2.weight, "object_embed.weight": heads.object_embed.weight}
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with MsdaRecorder() as msda_rec, HungarianRecorder() as k4_rec, SamplerInputs() as s_rec:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator; its inputs recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with SamplerShapes() as shapes:
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    by_shape = {case: shapes.counts.pop(shape, 0) for case, shape in SAMPLER_CASES.items()}
+    other_shapes = {str(k): v for k, v in shapes.counts.items()}
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in trained.items()}
+    emit({"phase": "ov2seg_train_full_width", "config": OV2SEG_CONFIG,
+          "dtype": "bf16 AMP, f32 masters", "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W],
+          "targets": TRAIN_N, "points": cfg.model.criterion.train_num_points,
+          "steps": TRAIN_STEPS, "ms_per_step": ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "metrics": values,
+          "launches": launches, "expected_launches": expected, "k5_launches_by_shape": by_shape,
+          "k5_launches_at_other_shapes": other_shapes, "heads_moved": moved, "card": card})
+    if launches != expected:
+        raise AssertionError(f"OV2Seg train launches {launches} != {expected}")
+    if other_shapes or min(by_shape.values()) == 0:
+        raise AssertionError(f"OV2Seg: K5's shapes {by_shape}, others {other_shapes}, are not "
+                             f"phase 5's {SAMPLER_CASES}")
+    if not all(np.isfinite(v) for m in values for v in m.values()) or not all(moved.values()):
+        raise AssertionError(f"OV2Seg: a loss is not finite or a head did not move: {moved}")
+    _hold_k1("ov2seg_train", msda_rec)
+    _hold_k2_k3("ov2seg_train", msda_rec)
+    _hold_k4_k5_k6("ov2seg_train", k4_rec, s_rec, k4_calls=1)
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ov2seg_train_vs_plain(cfg):
+    """18.4: one f32 OV2Seg train-step loss and gradient at 1x2x192x320, card
+    against CPU, phase 9's bounds."""
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = _offsets_off_centres(
+        init_params(train.build_model(f32, device="cpu"), seed=SEED + 2), SEED + 2)
+    _hold_train_to_plain("ov2seg_train_kernels_vs_plain", f32, cpu_model,
+                         TRAIN_CHECK_PARAMS + ("segmenter.predictor.heads.zs_fc2.weight",
+                                               "segmenter.predictor.heads.object_embed.weight"))
+
+
+def phase_ov2seg_engine(card, clip):
+    """18.5-18.7: the engine with the OV2Seg recipe's eval settings over phase
+    10's dataset (bf16, windows of 10; each video's outputs padded to
+    _bucket(T) and tracked by the EMA chain: 40 + 24 + 136 K4 launches), with
+    its split and peak, K4 on every one of its costs against hungarian_plain;
+    then the 133-frame video's EMA chain alone on its recorded embeddings,
+    timed, its launches (_bucket(133)) and its assignment the engine's; then
+    one f32 video through the engine, card against CPU.  Returns (the timed
+    run's launches, the chain's)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_ov2seg_engine_")
+    try:
+        cats, write_s = _write_engine_dataset(root)
+        cfg = _ov2seg_config(clip, f"datasets.root={root}", f"datasets.test=[{ENGINE_DATASET}]",
+                             f"output_dir={os.path.join(root, 'out')}")
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        text = _text(np.random.RandomState(SEED))
+        _engine_warm_up(cfg, model, text)
+        long_t = engine._bucket(OV2SEG_EMA_T)
+        chains, track = [], engine.track_by_embeds
+
+        def keep_long(embeds, *a, **kw):
+            if embeds.shape[1] == long_t:
+                chains.append(embeds.detach().clone())
+            return track(embeds, *a, **kw)
+
+        engine.track_by_embeds = keep_long
+        try:
+            with HungarianRecorder() as tracking:
+                metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
+        finally:
+            engine.track_by_embeds = track
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = _engine_expected(cfg, launches)
+        finite = all(np.isfinite(v) for v in metrics.values())
+        t0 = time.perf_counter()
+        plain = _plain_assignments(tracking.costs)
+        plain_s = time.perf_counter() - t0
+        cols = [c for cost_cols in tracking.cols for c in cost_cols]
+        differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
+                  if not torch.equal(ref, got)]
+        emit({"phase": "ov2seg_engine_full_width", "config": OV2SEG_CONFIG,
+              "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+              "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
+              "window": engine.window_size(cfg), "metrics": metrics, "metrics_finite": finite,
+              "predictions": len(spans.preds), "launches": launches,
+              "expected_launches": expected, "frames": spans.frames, "wall_s": wall,
+              "frames_per_s": spans.frames / wall, "split_s": _engine_split(spans, wall),
+              "peak_mem_gib": peak, "k4_problems": len(plain), "k4_equal_to_plain": not differ,
+              "k4_problems_differing": differ, "k4_plain_seconds": plain_s,
+              "dataset_write_s": write_s, "card": card})
+        if launches != expected:
+            raise AssertionError(f"OV2Seg engine launches {launches} != {expected}")
+        if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
+            raise AssertionError(f"OV2Seg engine metrics {metrics}, {len(spans.preds)} predictions")
+        if differ or len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"K4 on the OV2Seg engine's costs differs from hungarian_plain: "
+                                 f"{differ}")
+        # the long video's chain alone: 136 dependent (1, 100, 100) solves
+        embeds = chains[-1]
+        chain = functools.partial(engine.track_by_embeds, embeds,
+                                  ema_alpha=engine.OV2SEG_EMA_ALPHA)
+        reset_counts()
+        indices = chain()
+        torch.cuda.synchronize()
+        chain_launches = read_counts()
+        ms = time_cuda(chain, iters=5, warmup=1)
+        first = len(tracking.costs) - long_t
+        engine_cols = torch.stack([c[0] for c in tracking.cols[first:]])
+        same = bool(torch.equal(indices[0].cpu(), engine_cols))
+        chain_expected = {**{k: 0 for k in chain_launches}, "hungarian": long_t}
+        emit({"phase": "ov2seg_ema_chain", "frames": OV2SEG_EMA_T, "padded_to": long_t,
+              "embeds": list(embeds.shape), "dtype": str(embeds.dtype).replace("torch.", ""),
+              "ms": ms, "ms_per_solve": ms / long_t, "launches": chain_launches,
+              "expected_launches": chain_expected, "equal_to_the_engine_run": same,
+              "card": card})
+        if chain_launches != chain_expected or not same:
+            raise AssertionError(f"the EMA chain launched {chain_launches} (expected "
+                                 f"{chain_expected}) or differs from the engine's: {same}")
+        del model, chains
+        torch.cuda.empty_cache()
+        name = _write_check_video(root, cats)
+        base = _check_config(cfg, root, name)
+        check_model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
+        _hold_engine_to_plain("ov2seg_engine_kernels_vs_plain", base, check_model,
+                              _text(np.random.RandomState(SEED + 3)), name, root)
+        return launches, chain_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_ov2seg(card, clip):
+    """Phase 18a: OV2Seg with its recipe's model; returns its paths' launch
+    counts by name."""
+    cfg = _ov2seg_config(clip)
+    launches = {"ov2seg_eval": phase_ov2seg_window(card, cfg)}
+    phase_ov2seg_vs_plain(cfg)
+    launches["ov2seg_train"] = phase_ov2seg_train(card, cfg)
+    phase_ov2seg_train_vs_plain(cfg)
+    launches["ov2seg_engine"], launches["ov2seg_ema_chain"] = phase_ov2seg_engine(card, clip)
+    launches["ov2seg_cli_train"], launches["ov2seg_cli_eval"] = _recipe_cli(
+        card, clip, OV2SEG_CONFIG, OV2SEG_CLI_STEPS, "ov2seg")
+    return launches
+
+
+def write_swin_clip_file(root):
+    """Random ViT-L/14@336px weights in OpenAI's key layout (f16, from the seed)."""
+    weights = os.path.join(root, "ViT-L-14-336px.pt")
+    torch.save(clip_synthetic.openai_state_dict(SWIN_CLIP, seed=SEED), weights)
+    return weights
+
+
+def _swin_config(clip, *overrides):
+    """The SAN Swin-B recipe with the CLIP files ``clip`` (weights, bpe)."""
+    return load_config(SAN_SWIN_CONFIG, [f"model.clip_adapter.weights={clip[0]}",
+                                         f"model.clip_adapter.bpe_vocab={clip[1]}",
+                                         *SWIN_OVERRIDES, *overrides])
+
+
+def phase_swin_window(card, cfg, tree):
+    """18.8: SANOnline-SwinB with the ViT-L/14@336px split, bf16: three
+    10x480x864 windows (min_size_test 480 on the canvas) with their split
+    (CLIP front, segmenter, CLIP post, tracking and top-k); returns the
+    launches."""
+    model = _san_model(cfg, tree, DEVICE, SEED).to(dtype=torch.bfloat16).eval()
+    eval_fn = train.make_eval_fn(cfg, model)
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, SWIN_WINDOW_H, SWIN_WINDOW_W
+    dim = model_shape(SWIN_CLIP)["embed_dim"]
+    windows = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng, dim)).to(DEVICE, torch.bfloat16)
+    eval_fn(windows[0], text)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    outs = [eval_fn(x, text) for x in windows]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / NUM_WINDOWS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with SanSpans(model) as spans:
+        timed = spans.window(eval_fn)
+        for x in windows:
+            timed(x, text)
+    split = {k: v / NUM_WINDOWS for k, v in spans.split_ms().items()}
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"SAN-SwinB window {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS,
+                "hungarian": NUM_WINDOWS}
+    emit({"phase": "san_swin_window_full_width", "config": SAN_SWIN_CONFIG, "dtype": "bfloat16",
+          "clip": SWIN_CLIP, "windows": NUM_WINDOWS, "frames_per_window": t, "frame_hw": [h, w],
+          "ms_per_window": ms, "frames_per_s": t / (ms / 1e3), "split_ms_per_window": split,
+          "peak_mem_gib": peak, "launches": launches, "expected_launches": expected,
+          "card": card})
+    if launches != expected:
+        raise AssertionError(f"SAN-SwinB window launches {launches} != {expected}")
+    del model, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_swin_train(card, cfg, tree):
+    """18.9: the SAN-SwinB train step at 1x2x480x864 (bf16 AMP, f32 masters,
+    the recipe's drop path 0.3 drawn from the step's generator): one warm-up
+    and three timed steps, the tower and the trunk's frozen LayerNorms
+    bit-equal after them, the trunk's bias tables and patch embedding and
+    SAN's projections moved; returns the launches."""
+    model = _san_model(cfg, tree, DEVICE, SEED)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith("clip_adapter.visual.") or
+              (n.startswith("segmenter.backbone.") and "norm" in n)}
+    trained = {n: p for n, p in model.named_parameters() if n in SWIN_TRAINED}
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE,
+                         text_dim=model_shape(SWIN_CLIP)["embed_dim"])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    step(batch, gen)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    params = dict(model.named_parameters())
+    fixed = all(torch.equal(params[n], v) for n, v in frozen.items())
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in trained.items()}
+    emit({"phase": "san_swin_train_full_width", "config": SAN_SWIN_CONFIG,
+          "dtype": "bf16 AMP, f32 masters", "clip": SWIN_CLIP,
+          "drop_path_rate": cfg.model.backbone.swin_drop_path_rate,
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "frozen_params": len(frozen), "frozen_bit_equal": fixed, "trained_moved": moved,
+          "card": card})
+    if launches != expected:
+        raise AssertionError(f"SAN-SwinB train launches {launches} != {expected}")
+    if not all(np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a SAN-SwinB train-step loss or grad norm is not finite")
+    if not fixed or not all(moved.values()) or len(moved) != len(SWIN_TRAINED):
+        raise AssertionError(f"a frozen parameter changed or a trained one did not: {moved}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_swin_vs_plain(clip):
+    """18.10: the Swin segmenter in f32, card against CPU, at 192x320 with the
+    Swin-B trunk cut to 2 blocks a stage under the SAN R50 recipe's ViT-B/16
+    split (phase 11's CLIP files): one window (phase 7's bounds) and one
+    train step with drop path 0 (phase 9's)."""
+    import train_net_torch as cli
+
+    cfg = _san_config(clip, *SWIN_CHECK_OVERRIDES)
+    tree = cli.read_clip(cfg)
+    _hold_window_to_plain("swin_kernels_vs_plain", cfg, _san_model(cfg, tree, "cpu", SEED + 1),
+                          CHECK_TRAIN_H, CHECK_TRAIN_W)
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = _offsets_off_centres(_san_model(f32, tree, "cpu", SEED + 2), SEED + 2)
+    _hold_train_to_plain("swin_train_kernels_vs_plain", f32, cpu_model,
+                         TRAIN_CHECK_PARAMS + (
+                             "segmenter.backbone.stage2_block1.attn.relative_position_bias_table",
+                             "segmenter.backbone.patch_embed.weight"))
+
+
+def _swin_init(root, cfg):
+    """A port checkpoint directory that stands in for the recipe's Mask2Former
+    Swin-B init (``pretrained/m2f_swinB.msgpack``, not in the repository):
+    the segmenter from the seed with the trunk's biases drawn N(0, 0.02), as
+    a trained trunk's are nonzero.  With every bias zero, a window of padded
+    (zero) pixels stays exactly zero through the trunk, and each LayerNorm's
+    backward scales the gradient there by 1/sqrt(eps) = 1e3: the first step's
+    gradient overflows, in the JAX package too (ROADMAP.md §3)."""
+    seg = init_params(Segmenter(cfg.model), seed=SEED + 7)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    with torch.no_grad():
+        for name, p in seg.backbone.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    path = os.path.join(root, "swin_init")
+    save_checkpoint(path, 0, {"step": 0, "params": {f"segmenter.{n}": p for n, p
+                                                    in seg.state_dict().items()}})
+    return path
+
+
+def phase_swin(card, clip, clip_dir):
+    """Phase 18b: the SAN Swin-B recipes with a random ViT-L/14@336px written
+    under ``clip_dir`` (``clip``'s merge file); returns the paths' launch
+    counts by name."""
+    import train_net_torch as cli
+
+    t0 = time.perf_counter()
+    big = (write_swin_clip_file(clip_dir), clip[1])
+    cfg = _swin_config(big)
+    tree = cli.read_clip(cfg)
+    emit({"phase": "swin_clip_files", "clip": SWIN_CLIP, "seconds": time.perf_counter() - t0,
+          "bytes": os.path.getsize(big[0])})
+    launches = {"san_swin_eval": phase_swin_window(card, cfg, tree)}
+    launches["san_swin_train"] = phase_swin_train(card, cfg, tree)
+    del tree
+    phase_swin_vs_plain(clip)
+    stage1 = os.path.join(clip_dir, "san_swin_checkpoints")
+    clips = f"solver.ims_per_batch={SWIN_CLI_CLIPS}"
+    init = f"model.weights={_swin_init(clip_dir, cfg)}"
+    launches["san_swin_cli_train"], launches["san_swin_cli_eval"] = _recipe_cli(
+        card, big, SAN_SWIN_CONFIG, SWIN_CLI_STEPS, "san_swin", stage1, (init, clips))
+    launches["san_swin_offline_cli_eval"] = phase_san_offline_cli(
+        card, big, stage1, SAN_SWIN_OFFLINE_CONFIG, "san_swin_offline", SWIN_OVERRIDES)
+    launches["brivis_swin_cli_train"], launches["brivis_swin_cli_eval"] = phase_brivis_cli(
+        card, big, stage1, BRIVIS_SWIN_CONFIG, "brivis_swin", SWIN_CLI_STEPS, (clips,))
     return launches
 
 
@@ -4301,6 +4761,8 @@ def main() -> int:
         openvis_launches = phase_openvis(card, clip)
         burst_launches = phase_burst(card, clip, stage1)
         offline_launches = phase_offline(card, clip, stage1)
+        ov2seg_launches = phase_ov2seg(card, clip)
+        swin_launches = phase_swin(card, clip, clip_dir)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in cli_recorded.items():
@@ -4327,7 +4789,9 @@ def main() -> int:
                               **{path: n[name] for path, n in brivis_launches.items()},
                               **{path: n[name] for path, n in openvis_launches.items()},
                               **{path: n[name] for path, n in burst_launches.items()},
-                              **{path: n[name] for path, n in offline_launches.items()}},
+                              **{path: n[name] for path, n in offline_launches.items()},
+                              **{path: n[name] for path, n in ov2seg_launches.items()},
+                              **{path: n[name] for path, n in swin_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -7,7 +7,7 @@ open-vocabulary ensemble (``simplebsl.py:122-163``): the plain ViT tower of
 learned no-object row, the chunked mask-crop scoring over a video's real
 frames and the geometric-mean ensemble.  The mask-adapted towers
 ("adapted", "bg_adapted") and the ModifiedResNet towers raise, naming
-ROADMAP.md queue 1 item 8.
+ROADMAP.md queue 1 item 8.6.
 
 Under AMP eval (``test.amp``) the tower runs in bf16 with its LayerNorms and
 softmaxes in f32, as the JAX package's ``amp_cast`` of the tower does.
@@ -29,7 +29,7 @@ from openvis_tpu_torch.models.clip_adapter import clip_crop_classify, frame_aver
 
 
 def _adapted_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item 8)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item 8.6)")
 
 
 def build_clip_visual(cfg: Config, device) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -15,7 +15,14 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
     ``non_object_embedding``, CLIP's ``proj``, ``text_projection``,
     ``class_embedding``, ``positional_embedding`` and ``logit_scale``, and
     SAN's ``bg_embed`` (its 1x1 ``attn_proj``/``attn_mlp`` kernels are Conv
-    kernels, its ``attn_embed`` Dense layers).
+    kernels, its ``attn_embed`` Dense layers), and Swin's
+    ``relative_position_bias_table`` and NHWC ``absolute_pos_embed``.
+
+A Swin trunk's LayerNorms (``norm1``, ``norm2``, ``patch_norm``,
+``out_norm{i}``, ``downsample{i}/norm``) are LayerNorms, not folded
+BatchNorms: their ``scale`` becomes ``weight`` (``_is_frozen_affine`` takes
+only the ResNet's stem norm and the norms directly inside a
+``res<k>_block<b>``).
 
 The CLIP towers keep flax's module levels, the ``ln`` inside each
 ``LayerNormF32`` included, so their keys need no other rule; the bias-free
@@ -171,6 +178,8 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
                 p.copy_(torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5)
             elif name == "logit_scale":
                 p.fill_(math.log(1 / 0.07))
+            elif name in ("relative_position_bias_table", "absolute_pos_embed"):
+                p.copy_(torch.fmod(torch.randn(p.shape, generator=g), 2.0) * 0.02)
     # after the generic pass, which reaches a module's Linears after the module
     for mod in model.modules():
         if isinstance(mod, MSDeformAttnModule):

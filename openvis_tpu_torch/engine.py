@@ -28,7 +28,8 @@ frames:
   frames appended to the video change the real frames' outputs.  The port
   pads its input to ``_bucket(t)`` frames by repeating the last one, as the
   JAX engine does, so that the two agree (the reference runs it over the
-  real T; ROADMAP.md records the difference).
+  real T; ROADMAP.md records the difference).  OV2Seg's post-process is
+  padded the same way (below): its video score averages the padded frames.
 * The windows' outputs stay on the device; the only blocking copies of a
   video are the top-k scores and labels, and each prediction's thresholded
   masks (``evals/ytvis_eval.py``), which are resized on the device.
@@ -79,8 +80,17 @@ scores over the real frames before the top-k; nothing is tracked.  Offline
 OpenVIS is scored on its objectness, as in the JAX engine (ROADMAP.md §3
 records that the reference crops with CLIP there too).
 
-OV2Seg and MasQCLIP raise ``NotImplementedError`` naming their ROADMAP.md
-items.
+OV2Seg (JAX ``engine.py:133-134``, ``:145-171``, ``:442-450``) runs the
+windowed path and then follows the JAX engine's padding: the logits,
+objectness logits, embeddings and masks of the T real frames are padded to
+``_bucket(T)`` frames with the last one repeated, tracked by the EMA chain
+(alpha 0.7, one Hungarian solve a frame), scored by ``ov2seg_eval_scores``
+on the aligned logits, whose frame mean runs over all ``_bucket(T)`` frames
+(the repeated last frame enters the video score; ROADMAP.md §3 records that
+the reference averages the real frames), reduced to the top-k and gated per
+frame; the masks go to the evaluator cut to the T real frames.
+
+MasQCLIP raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -101,6 +111,7 @@ from openvis_tpu_torch.data.mapper import load_burst_records
 from openvis_tpu_torch.evals.burst_eval import BURSTEvaluator
 from openvis_tpu_torch.evals.ytvis_eval import YTVISEvaluator
 from openvis_tpu_torch.models.clip_adapter import frame_average_scores
+from openvis_tpu_torch.models.meta.ov2seg import ov2seg_eval_scores, ov2seg_frame_gate
 from openvis_tpu_torch.models.meta.simple_baseline import eval_scores
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
@@ -110,7 +121,9 @@ from openvis_tpu_torch.train import ITEM_OF_ARCH, eval_model, resolve_device
 logger = logging.getLogger(__name__)
 
 _PORTED_ARCHS = ("SimpleBaseline", "SimpleBaselineOnline", "OpenVIS", "OpenVISOnline",
-                 "SAN", "SANOnline", "BriVIS", "VideoMaskFormer", "MinVIS")
+                 "SAN", "SANOnline", "BriVIS", "VideoMaskFormer", "MinVIS", "OV2Seg",
+                 "OV2SegOnline")
+OV2SEG_EMA_ALPHA = 0.7  # OV2Seg's tracker (JAX engine.py:145)
 # the offline (clip-level) archs: the JAX engine's list less BriVIS, which it
 # dispatches first (its own whole-video path here too), and MasQCLIP (queue 1
 # item 8.7)
@@ -185,25 +198,55 @@ def amp_cast(cfg: Config, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.T
 
 def make_window_fn(cfg: Config, model: nn.Module) -> Callable:
     """f(params, frames (W, H, Wd, 3), text_feats) -> the window's raw outputs:
-    logits (W, Q, C), masks (Q, W, h, w) and embeds (W, Q, C).  ``params``
-    maps the model's parameter names to the tensors to run it with."""
+    logits (W, Q, C), masks (Q, W, h, w) and embeds (W, Q, C); OV2Seg's also
+    its objectness logits ``obj_logits`` (W, Q, 2).  ``params`` maps the
+    model's parameter names to the tensors to run it with."""
     model = eval_model(model)
+    ov2seg = cfg.model.meta_architecture.startswith("OV2Seg")
 
     def fn(params, frames, text_feats):
         out = torch.func.functional_call(model, params, (frames, frames.shape[0], text_feats))
-        return {"logits": out["pred_logits"][0], "masks": out["pred_masks"][0],
-                "embeds": out["pred_embeds"][0]}
+        res = {"logits": out["pred_logits"][0], "masks": out["pred_masks"][0],
+               "embeds": out["pred_embeds"][0]}
+        if ov2seg:
+            res["obj_logits"] = out["pred_object_logits"][0]
+        return res
 
     return fn
 
 
-def make_postprocess_fn(cfg: Config) -> Callable:
-    """f(logits (T, Q, C), masks (Q, T, h, w), embeds (T, Q, C)) -> top-k dict
-    over the video's T frames: tracking, the frame-mean scores without the
-    no-object column, the top-k (query, class) pairs and their masks."""
-    topk = cfg.model.test.topk_per_video
+def ov2seg_topk(logits, masks, embeds, obj_logits, topk: int) -> Dict[str, torch.Tensor]:
+    """OV2Seg's post-process of a video's T real frames (JAX ``engine.py:145-171``
+    after its padding, ``:442-450``): everything padded to ``_bucket(T)``
+    frames with the last one, the EMA tracker, ``ov2seg_eval_scores`` on the
+    aligned logits (their mean over all ``_bucket(T)`` frames), the top-k,
+    the per-frame gate; the top-k masks cut to the T real frames."""
+    t = logits.shape[0]
+    tb = _bucket(t)
+    logits, embeds, obj_logits = (_pad_frames(x, tb) for x in (logits, embeds, obj_logits))
+    masks = _pad_frames(masks, tb, dim=1)
+    indices = track_by_embeds(embeds[None], ema_alpha=OV2SEG_EMA_ALPHA)     # (1, Tb, Q)
+    logits = apply_track_indices(logits[None], indices)[0]
+    obj = apply_track_indices(obj_logits[None], indices)[0]
+    video, per_frame = ov2seg_eval_scores(logits, obj)
+    out = inference_video_topk(video, masks, topk, track_indices=indices[0])
+    sel = per_frame[:, out["query_idx"]]                                     # (Tb, topk, K)
+    pf_sel = torch.gather(sel, 2, out["labels"][None, :, None].expand(tb, -1, 1))[..., 0]
+    out["mask_logits"] = ov2seg_frame_gate(out["mask_logits"], out["scores"], pf_sel)[:, :t]
+    return out
 
-    def fn(logits, masks, embeds):
+
+def make_postprocess_fn(cfg: Config) -> Callable:
+    """f(logits (T, Q, C), masks (Q, T, h, w), embeds (T, Q, C), obj_logits=None)
+    -> top-k dict over the video's T frames: tracking, the frame-mean scores
+    without the no-object column, the top-k (query, class) pairs and their
+    masks; OV2Seg's: ``ov2seg_topk`` with its (T, Q, 2) objectness logits."""
+    topk = cfg.model.test.topk_per_video
+    ov2seg = cfg.model.meta_architecture.startswith("OV2Seg")
+
+    def fn(logits, masks, embeds, obj_logits=None):
+        if ov2seg:
+            return ov2seg_topk(logits, masks, embeds, obj_logits, topk)
         # masks stay in raw per-frame query order; tracking alignment is
         # fused into the top-k gather, so only the selected masks move
         indices = track_by_embeds(embeds[None])                # (1, T, Q)
@@ -329,7 +372,7 @@ def make_brivis_video_fn(cfg: Config, model: nn.Module, params: Dict[str, torch.
                  for i in range(0, t, window)]
         embeds = torch.cat([p["pred_embeds"][0] for p in stack])       # (T, Q, C)
         tb = _bucket(t)
-        padded = torch.cat([embeds, embeds[-1:].expand(tb - t, *embeds.shape[1:])])
+        padded = _pad_frames(embeds, tb)
         indices = track_by_embeds(padded[None])                        # (1, Tb, Q)
         aligned = apply_track_indices(padded[None], indices)
         final = raw_layers(aligned[0], stack, t, tb) if raw else call("resample", aligned)[0]
@@ -407,9 +450,12 @@ def make_single_shot_window_fn(cfg: Config, model: nn.Module) -> Callable:
     return fn
 
 
-def _pad_frames(frames: torch.Tensor, n: int) -> torch.Tensor:
-    """(t, ...) -> (n, ...): the last frame repeated, as the JAX engine pads."""
-    return torch.cat([frames, frames[-1:].expand(n - frames.shape[0], *frames.shape[1:])])
+def _pad_frames(x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+    """``x`` padded to ``n`` frames along ``dim`` with its last frame repeated,
+    as the JAX engine pads."""
+    shape = list(x.shape)
+    shape[dim] = n - x.shape[dim]
+    return torch.cat([x, x.narrow(dim, x.shape[dim] - 1, 1).expand(shape)], dim=dim)
 
 
 def _evaluate_single_shot(cfg: Config, model: nn.Module, params: Dict[str, torch.Tensor],
@@ -462,8 +508,7 @@ def _evaluate_single_shot(cfg: Config, model: nn.Module, params: Dict[str, torch
                                    torch.arange(window, device=device) < keep)
                 acc = acc + lg
                 parts.append(mk[:, :keep])
-            masks = torch.cat(parts, dim=1)                        # (Q, T, h, w)
-            masks = torch.cat([masks, masks[:, -1:].expand(-1, tb - t, -1, -1)], dim=1)
+            masks = _pad_frames(torch.cat(parts, dim=1), tb, dim=1)  # (Q, Tb, h, w)
             probs = torch.softmax(acc / t, dim=-1)[..., :-1]
             topk_out = (ensembled_topk(probs, masks, pixels, t) if ensemble
                         else inference_video_topk(probs, masks, topk))
@@ -545,12 +590,14 @@ def evaluate_dataset(
             logits = torch.cat([p["logits"] for p in parts])            # (T, Q, C)
             masks = torch.cat([p["masks"] for p in parts], dim=1)       # (Q, T, h, w)
             embeds = torch.cat([p["embeds"] for p in parts])            # (T, Q, C)
+            extra = ({"obj_logits": torch.cat([p["obj_logits"] for p in parts])}
+                     if "obj_logits" in parts[0] else {})
             del parts
             if crop_fn is None:
-                topk = post_fn(logits, masks, embeds)
+                topk = post_fn(logits, masks, embeds, **extra)
             else:
                 topk = crop_fn(logits, masks, embeds, pixels)
-            del logits, masks, embeds
+            del logits, masks, embeds, extra
             _process(evaluator, rec, sample, topk, counts)
     return _finalize(cfg, dataset_name, evaluator, counts)
 

@@ -269,7 +269,7 @@ _MODEL_SHAPES = {
                            vision_layers=24, vision_heads=16, image_size=336,
                            text_width=768, text_heads=12, text_layers=12),
     # ModifiedResNet towers (vision_layers is a TUPLE): not ported yet
-    # (ROADMAP.md queue 1 item 8)
+    # (ROADMAP.md queue 1 item 8.6)
     "RN50": dict(embed_dim=1024, vision_patch=None, vision_width=64,
                  vision_layers=(3, 4, 6, 3), vision_heads=32, image_size=224,
                  text_width=512, text_heads=8, text_layers=12),
@@ -296,7 +296,7 @@ def model_shape(model_name: str) -> Dict:
     shape = _MODEL_SHAPES[model_name]
     if isinstance(shape["vision_layers"], tuple):
         raise NotImplementedError(f"the ModifiedResNet CLIP tower {model_name!r} is not ported "
-                                  "yet (ROADMAP.md, queue 1 item 8)")
+                                  "yet (ROADMAP.md, queue 1 item 8.6)")
     return shape
 
 

@@ -1,18 +1,19 @@
 """Segmenter: backbone -> pixel decoder -> masked transformer decoder.
 
-Port of ``openvis_tpu/models/segmenter.py:66-153``: the ResNet backbone, the
-``msdeform`` pixel decoder (with SAN's CLIP taps as its ``extra_features``)
-and the transformer decoder that ``transformer_decoder.name`` names, by the
-JAX package's ``_DECODER_KINDS``: the frame decoders (``frame``,
-``frame_embedding``, ``frame_proposal``, ``side_adapter_frame``) and the video
+Port of ``openvis_tpu/models/segmenter.py:33-153``: the backbone
+(``resnet``; OV2Seg's ``timm_resnet``, the same trunk with
+``stride_in_1x1=False``; ``swin``, whose stages' widths ``embed_dim * 2^i``
+go to the pixel decoder's input projections), the ``msdeform`` pixel decoder
+(with SAN's CLIP taps as its ``extra_features``) and the transformer decoder
+that ``transformer_decoder.name`` names, by the JAX package's
+``_DECODER_KINDS``: the frame decoders (``frame``, ``frame_embedding``,
+``frame_proposal``, ``side_adapter_frame``, ``ov2seg_frame``) and the video
 decoders of the offline archs (``video``, ``video_embedding``,
 ``video_proposal``, ``side_adapter_video``), whose mask features go in as
-(B, T, ...).  OV2Seg's decoder and the zero-shot decoders raise
-``NotImplementedError`` naming their ROADMAP.md items (queue 1 items 8.5 and
-8.8), as do OV2Seg's ``timm_resnet`` (8.5), Swin (8.6) and the other pixel
-decoders (8.8).  Input is the flattened
-frame batch (B*T, H, W, 3) in NHWC, as in the JAX package; the trunk runs
-NCHW.
+(B, T, ...).  The zero-shot decoders and the other pixel decoders raise
+``NotImplementedError`` naming their ROADMAP.md item (queue 1 item 8.8).
+Input is the flattened frame batch (B*T, H, W, 3) in NHWC, as in the JAX
+package; the trunk runs NCHW.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from openvis_tpu_torch.config import ModelConfig
+from openvis_tpu_torch.models.backbone import swin
 from openvis_tpu_torch.models.backbone.resnet import ResNet, feature_channels
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from openvis_tpu_torch.models.transformer_decoder import MaskedTransformerDecoder
@@ -38,11 +40,10 @@ DECODER_KINDS = {
     "frame_proposal": ("frame", "proposal"),
     "side_adapter_frame": ("frame", "side_adapter"),
     "side_adapter_video": ("video", "side_adapter"),
+    "ov2seg_frame": ("frame", "ov2seg"),
 }
 # what is still to port and its ROADMAP.md queue 1 item
-_UNPORTED_DECODERS = {"ov2seg_frame": "8.5", "frame_zero_shot": "8.8",
-                      "video_zero_shot": "8.8"}
-_UNPORTED_BACKBONES = {"timm_resnet": "8.5", "swin": "8.6"}
+_UNPORTED_DECODERS = {"frame_zero_shot": "8.8", "video_zero_shot": "8.8"}
 _UNPORTED_PIXEL_DECODERS = {"fpn": "8.8", "transformer_enc": "8.8"}
 
 
@@ -50,13 +51,30 @@ def _not_ported(what: str, where: str = "queue 1") -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {where})")
 
 
+def build_backbone(cfg: ModelConfig):
+    """(trunk, its feature channels by name) for ``model.backbone``."""
+    b = cfg.backbone
+    if b.name in ("resnet", "timm_resnet"):
+        trunk = ResNet(b.depth, b.stem_out_channels,
+                       False if b.name == "timm_resnet" else b.stride_in_1x1,
+                       tuple(b.out_features))
+        return trunk, feature_channels(b.depth, b.stem_out_channels)
+    if b.name == "swin":
+        trunk = swin.SwinTransformer(
+            embed_dim=b.swin_embed_dim, depths=tuple(b.swin_depths),
+            num_heads=tuple(b.swin_num_heads), window_size=b.swin_window_size,
+            mlp_ratio=b.swin_mlp_ratio, patch_size=b.swin_patch_size,
+            qkv_bias=b.swin_qkv_bias, drop_path_rate=b.swin_drop_path_rate,
+            patch_norm=b.swin_patch_norm, ape=b.swin_ape,
+            pretrain_img_size=b.swin_pretrain_img_size, out_features=tuple(b.out_features))
+        return trunk, swin.feature_channels(b.swin_embed_dim)
+    raise ValueError(f"unknown backbone {b.name!r}")
+
+
 class Segmenter(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        b, pd, td = cfg.backbone, cfg.pixel_decoder, cfg.transformer_decoder
-        if b.name != "resnet":
-            raise _not_ported(f"backbone {b.name!r}",
-                              f"queue 1 item {_UNPORTED_BACKBONES.get(b.name, 8)}")
+        pd, td = cfg.pixel_decoder, cfg.transformer_decoder
         if pd.name != "msdeform":
             raise _not_ported(f"pixel decoder {pd.name!r}",
                               f"queue 1 item {_UNPORTED_PIXEL_DECODERS.get(pd.name, 8)}")
@@ -67,10 +85,9 @@ class Segmenter(nn.Module):
             raise ValueError(f"unknown transformer decoder {td.name!r}")
         mode, head = DECODER_KINDS[td.name]
         self.video = mode == "video"
-        self.backbone = ResNet(b.depth, b.stem_out_channels, b.stride_in_1x1,
-                               tuple(b.out_features))
+        self.backbone, channels = build_backbone(cfg)
         self.pixel_decoder = MSDeformAttnPixelDecoder(
-            feature_channels(b.depth, b.stem_out_channels),
+            channels,
             conv_dim=pd.conv_dim, mask_dim=pd.mask_dim,
             transformer_in_features=tuple(pd.transformer_in_features),
             enc_layers=pd.transformer_enc_layers, n_heads=pd.num_heads,

@@ -15,7 +15,10 @@ Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
   * heads: ``class`` (one Linear to ``num_classes + 1``, VideoMaskFormer and
     MinVIS), ``embedding`` (a 2-layer MLP to the CLIP width, per query),
     OpenVIS's ``proposal`` (one Linear to 2 objectness logits,
-    ``frame_mask2former_transformer_decoder.py:199-207``) and SAN's
+    ``frame_mask2former_transformer_decoder.py:199-207``), OV2Seg's ``ov2seg``
+    (``zs_fc1`` to D/2, ReLU, ``zs_fc2`` to D, beside ``object_embed`` to 2
+    objectness logits, packed as ``[e | obj]``; JAX
+    ``transformer_decoder.py:224-230``) and SAN's
     ``side_adapter`` (per CLIP head, attention-bias maps
     ``einsum(attn_embed(x), attn_features)`` over the mask features
     downsampled by 4 and run through three 1x1 convolutions,
@@ -27,8 +30,7 @@ Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
     The attention over a clip is not masked by frame: frames appended to a
     clip change the real frames' outputs.
 
-Not ported: the zero-shot and OV2Seg heads (ROADMAP.md, queue 1 items 8.8 and
-8.5).
+Not ported: the zero-shot heads (ROADMAP.md, queue 1 item 8.8).
 """
 
 from __future__ import annotations
@@ -167,9 +169,10 @@ class PredictionHeads(nn.Module):
     """decoder_norm -> the head's logits and the 3-layer mask-embed MLP dotted
     with the mask features.  ``class``: one Linear to ``num_classes + 1``;
     ``embedding``: a 2-layer MLP to the CLIP width; ``proposal``: OpenVIS's
-    class-agnostic objectness, one Linear to 2 logits; ``side_adapter``: a
-    3-layer MLP whose queries dot the attention features into per-head bias
-    maps."""
+    class-agnostic objectness, one Linear to 2 logits; ``ov2seg``: the
+    zero-shot embedding (hidden -> D/2 -> D) and 2 objectness logits packed
+    on the last axis; ``side_adapter``: a 3-layer MLP whose queries dot the
+    attention features into per-head bias maps."""
 
     def __init__(self, hidden_dim: int, mask_dim: int, head: str = "embedding",
                  clip_dim: int = 512, num_classes: int = 0):
@@ -182,6 +185,10 @@ class PredictionHeads(nn.Module):
             self.class_embed = MLP(hidden_dim, clip_dim * 2, clip_dim, 2)
         elif head == "proposal":
             self.class_embed = nn.Linear(hidden_dim, 2)
+        elif head == "ov2seg":
+            self.zs_fc1 = nn.Linear(hidden_dim, clip_dim // 2)
+            self.zs_fc2 = nn.Linear(clip_dim // 2, clip_dim)
+            self.object_embed = nn.Linear(hidden_dim, 2)
         elif head == "side_adapter":
             self.attn_embed = MLP(hidden_dim, hidden_dim, hidden_dim, 3)
         else:
@@ -200,7 +207,10 @@ class PredictionHeads(nn.Module):
         masks (B, Q, T, H, W), normed output)."""
         x = amp_norm(self.decoder_norm, output)
         video = mask_features.dim() == 5
-        if self.head != "side_adapter":
+        if self.head == "ov2seg":
+            logits = torch.cat([self.zs_fc2(F.relu(self.zs_fc1(x))), self.object_embed(x)],
+                               dim=-1)
+        elif self.head != "side_adapter":
             logits = self.class_embed(x)
         elif video:
             # per-clip queries against per-frame attention features

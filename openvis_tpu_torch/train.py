@@ -1,8 +1,9 @@
 """Model assembly, the train step and the windowed video eval entry point.
 
 Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), OpenVIS(Online),
-SAN(Online), BriVIS, VideoMaskFormer and MinVIS: ``build_model`` (``:25``), the loss closure
-``make_loss_fn`` with its AMP rule (``:70-174``), the train step of
+SAN(Online), BriVIS, VideoMaskFormer, MinVIS and OV2Seg(Online):
+``build_model`` (``:25``), the loss closure ``make_loss_fn`` with its AMP
+rule (``:70-174``), the train step of
 ``openvis_tpu/parallel/train_step.py`` (``build_train_step``, one process or
 one of several over ``torch.distributed``) and ``make_eval_fn``
 (``:177-203``; OpenVISOnline evaluates through the engine's CLIP crops).  The
@@ -10,7 +11,9 @@ offline archs (the video decoder) train clip-level; offline SAN's loss raises
 (``meta/san.py``), so it only evaluates.  BriVIS's loss
 takes its assignment from the frozen image outputs or, with
 ``brivis_image_matcher=False`` (the second half of training), from the
-resampler's last layer.
+resampler's last layer.  The train loss runs the forward inside
+``swin.dropout_generator``: a Swin trunk's stochastic depth draws from the
+step's generator there, and nowhere else (eval never enters it).
 
 The entry points run on the card: ``device`` defaults to ``"cuda"``, and
 without a CUDA device they raise unless the caller passes ``device="cpu"``
@@ -28,8 +31,10 @@ from torch import nn
 
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
+from openvis_tpu_torch.models.backbone.swin import dropout_generator
 from openvis_tpu_torch.models.meta.brivis import BriVISModel, brivis_loss
 from openvis_tpu_torch.models.meta.openvis import OpenVISModel, openvis_loss
+from openvis_tpu_torch.models.meta.ov2seg import OV2SegModel, ov2seg_loss
 from openvis_tpu_torch.models.meta.san import SANModel, offline_san_loss_error, san_loss
 from openvis_tpu_torch.models.meta.simple_baseline import (
     SimpleBaselineModel,
@@ -75,10 +80,11 @@ _ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
           "SANOnline": (SANModel, san_loss),
           "BriVIS": (BriVISModel, brivis_loss),
           "VideoMaskFormer": (VideoMaskFormerModel, video_maskformer_loss),
-          "MinVIS": (VideoMaskFormerModel, video_maskformer_loss)}
-# the ROADMAP.md queue 1 item that ports each other architecture: OV2Seg
-# (8.5), MasQCLIP (8.7)
-ITEM_OF_ARCH = {"OV2Seg": "8.5", "OV2SegOnline": "8.5", "MasQCLIP": "8.7"}
+          "MinVIS": (VideoMaskFormerModel, video_maskformer_loss),
+          "OV2Seg": (OV2SegModel, ov2seg_loss),
+          "OV2SegOnline": (OV2SegModel, ov2seg_loss)}
+# the ROADMAP.md queue 1 item that ports each other architecture: MasQCLIP (8.7)
+ITEM_OF_ARCH = {"MasQCLIP": "8.7"}
 
 
 def build_model(cfg: Config, device="cuda") -> nn.Module:
@@ -152,7 +158,8 @@ def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
             frames = frames.to(torch.bfloat16)
             apply = {n: (p.to(torch.bfloat16) if n in to_bf16 else p)
                      for n, p in params.items()}
-        out = torch.func.functional_call(model, apply, (frames, t, batch["text_feats"]))
+        with dropout_generator(generator):
+            out = torch.func.functional_call(model, apply, (frames, t, batch["text_feats"]))
         # the frame decoder's mask features feed BriVIS's resampler, no loss:
         # no f32 copy of them
         out = {k: (v.float() if isinstance(v, torch.Tensor) and k != "mask_feats"
@@ -210,10 +217,26 @@ def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
     there.  The frame decoder (online) tracks by the query embeddings and
     averages the aligned logits over the frames; the video decoder (offline)
     scores its clip-level logits (offline SAN: its per-frame logits' mean).  BriVIS's decoder is the frame one, so it
-    takes the online branch, as in the JAX package."""
+    takes the online branch, as in the JAX package.  OV2Seg's window goes
+    through the engine's post-process (``engine.ov2seg_topk``: padded to
+    ``_bucket(T)``, the EMA tracker, the gated scores); the JAX package's
+    ``make_eval_fn`` cannot run it (its ``is_online`` reads ``ov2seg_frame``
+    as a video decoder)."""
     topk = cfg.model.test.topk_per_video
     online = is_online(cfg)
     model = eval_model(model)
+    if cfg.model.meta_architecture.startswith("OV2Seg"):
+        from openvis_tpu_torch import engine  # it imports this module
+
+        @torch.inference_mode()
+        def ov2seg_fn(frames: torch.Tensor, text_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+            dev = _model_device(model)
+            frames, text_feats = frames.to(dev), text_feats.to(dev)
+            out = model(frames, frames.shape[0], text_feats)
+            return engine.ov2seg_topk(out["pred_logits"][0], out["pred_masks"][0],
+                                      out["pred_embeds"][0], out["pred_object_logits"][0], topk)
+
+        return ov2seg_fn
 
     @torch.inference_mode()
     def eval_fn(frames: torch.Tensor, text_feats: torch.Tensor) -> Dict[str, torch.Tensor]:

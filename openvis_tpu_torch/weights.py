@@ -7,14 +7,17 @@ belongs to the JAX package, which the port does not import):
     ``latin1``, a ``.pth``/``.pt`` state dict through ``torch.load`` (tensors,
     numbers and strings only: ``weights_only=True``);
   * ``migrate_legacy_keys`` (``:269``), ``convert_resnet`` (``:88``),
-    ``convert_pixel_decoder`` (``:188``), ``convert_predictor`` (``:219``) and
-    ``convert_mask2former`` (``:288``, the ResNet backbone) build the same
-    flax-layout tree as the tool, which ``convert.params_from_flax`` maps onto
-    the port's ``state_dict`` keys (``segmenter_state``).
+    ``convert_swin`` (``:109``; the ``relative_position_index`` buffers are
+    rebuilt by the model, not read), ``convert_timm_resnet`` (``:159``, timm's
+    names onto d2's), ``convert_pixel_decoder`` (``:188``),
+    ``convert_predictor`` (``:219``) and ``convert_mask2former`` (``:288``, a
+    ResNet or Swin backbone) build the same flax-layout tree as the tool,
+    which ``convert.params_from_flax`` maps onto the port's ``state_dict``
+    keys (``segmenter_state``).
 
 ``convert_clip`` (``:366``, ``_clip_block`` ``:319``) converts an OpenAI CLIP
-ViT state dict the same way.  The Swin, timm-ResNet and ModifiedResNet CLIP
-readers are not ported yet and raise, naming their ROADMAP.md item.  The JAX
+ViT state dict the same way.  The ModifiedResNet CLIP reader is not ported
+yet and raises, naming its ROADMAP.md item (8.6).  The JAX
 package's flax ``.msgpack`` files, already in the flax layout, are read by
 ``utils/flax_msgpack.py``, not here.
 """
@@ -29,6 +32,7 @@ import torch
 
 from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import params_from_flax
+from openvis_tpu_torch.models.backbone.swin import SWIN_SHAPES
 
 BN_EPS = 1e-5
 
@@ -98,6 +102,66 @@ def convert_resnet(d: Dict[str, np.ndarray], depth: int = 50) -> Dict:
                 blk["shortcut_norm"] = _frozen_bn(d, f"{pre}.shortcut.norm")
             out[f"{stage}_block{bi}"] = blk
     return out
+
+
+def convert_swin(d: Dict[str, np.ndarray], size: str = "base") -> Dict:
+    """A d2 Mask2Former Swin checkpoint's ``backbone.*`` -> the Swin tree
+    (``backbone.layers.{i}.blocks.{j}``, ``.downsample``, ``backbone.norm{i}``);
+    the bias tables copy as they are."""
+    depths = SWIN_SHAPES[size]["depths"]
+    out = {
+        "patch_embed": _conv(d, "backbone.patch_embed.proj"),
+        "patch_norm": _norm(d, "backbone.patch_embed.norm"),
+    }
+    if "backbone.absolute_pos_embed" in d:  # (1, C, g, g) -> (1, g, g, C)
+        out["absolute_pos_embed"] = np.ascontiguousarray(
+            d["backbone.absolute_pos_embed"].transpose(0, 2, 3, 1))
+    for si, nb in enumerate(depths):
+        for bi in range(nb):
+            pre = f"backbone.layers.{si}.blocks.{bi}"
+            out[f"stage{si}_block{bi}"] = {
+                "norm1": _norm(d, f"{pre}.norm1"),
+                "attn": {
+                    "qkv": _lin(d, f"{pre}.attn.qkv"),
+                    "proj": _lin(d, f"{pre}.attn.proj"),
+                    "relative_position_bias_table":
+                        d[f"{pre}.attn.relative_position_bias_table"],
+                },
+                "norm2": _norm(d, f"{pre}.norm2"),
+                "mlp_fc1": _lin(d, f"{pre}.mlp.fc1"),
+                "mlp_fc2": _lin(d, f"{pre}.mlp.fc2"),
+            }
+        if si < len(depths) - 1:
+            red = d[f"backbone.layers.{si}.downsample.reduction.weight"]
+            out[f"downsample{si}"] = {
+                "norm": _norm(d, f"backbone.layers.{si}.downsample.norm"),
+                "reduction": {"kernel": np.ascontiguousarray(red.T)},
+            }
+        out[f"out_norm{si}"] = _norm(d, f"backbone.norm{si}")
+    return out
+
+
+def convert_timm_resnet(state: Dict[str, np.ndarray], depth: int = 50) -> Dict:
+    """A timm ResNet (OV2Seg's IN21k trunk: ``conv1``/``bn1`` stem,
+    ``layer{1..4}.{i}.conv/bn`` blocks, ``downsample.0/1`` shortcuts) -> the
+    tree of :func:`convert_resnet`, through d2's names."""
+    bn_parts = ("weight", "bias", "running_mean", "running_var")
+    remap = {"backbone.stem.conv1.weight": state["conv1.weight"]}
+    for part in bn_parts:
+        remap[f"backbone.stem.conv1.norm.{part}"] = state[f"bn1.{part}"]
+    blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]
+    for si, nb in enumerate(blocks):
+        for bi in range(nb):
+            src, dst = f"layer{si + 1}.{bi}", f"backbone.res{si + 2}.{bi}"
+            for ci in (1, 2, 3):
+                remap[f"{dst}.conv{ci}.weight"] = state[f"{src}.conv{ci}.weight"]
+                for part in bn_parts:
+                    remap[f"{dst}.conv{ci}.norm.{part}"] = state[f"{src}.bn{ci}.{part}"]
+            if f"{src}.downsample.0.weight" in state:
+                remap[f"{dst}.shortcut.weight"] = state[f"{src}.downsample.0.weight"]
+                for part in bn_parts:
+                    remap[f"{dst}.shortcut.norm.{part}"] = state[f"{src}.downsample.1.{part}"]
+    return convert_resnet(remap, depth)
 
 
 def convert_pixel_decoder(d: Dict[str, np.ndarray], enc_layers: int = 6) -> Dict:
@@ -200,7 +264,7 @@ def migrate_legacy_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item {item})")
 
 
@@ -211,13 +275,15 @@ def convert_mask2former(
     dec_layers: int = 9,
     head: str = "class",
     backbone: str = "resnet",
+    swin_size: str = "base",
 ) -> Dict:
-    """Full segmenter tree: {backbone, pixel_decoder, predictor}."""
-    if backbone != "resnet":
-        raise _not_ported(f"the {backbone!r} backbone's weight reader", 8)
+    """Full segmenter tree: {backbone, pixel_decoder, predictor};
+    ``backbone="swin"`` reads the Mask2Former Swin checkpoints the Swin
+    recipes start from."""
     state = migrate_legacy_keys(state)
     return {
-        "backbone": convert_resnet(state, depth),
+        "backbone": (convert_swin(state, swin_size) if backbone == "swin"
+                     else convert_resnet(state, depth)),
         "pixel_decoder": convert_pixel_decoder(state, enc_layers),
         "predictor": convert_predictor(state, dec_layers, head),
     }
@@ -247,7 +313,7 @@ def convert_clip(state: Dict[str, np.ndarray]) -> Dict:
     ModifiedResNet (RN50/RN101) towers raise."""
     d = state
     if "visual.layer1.0.conv1.weight" in d:
-        raise _not_ported("the ModifiedResNet CLIP tower's weight reader", 8)
+        raise _not_ported("the ModifiedResNet CLIP tower's weight reader", "8.6")
     visual = {
         "conv1": {"kernel": np.ascontiguousarray(d["visual.conv1.weight"].transpose(2, 3, 1, 0))},
         "class_embedding": d["visual.class_embedding"],
@@ -269,10 +335,6 @@ def convert_clip(state: Dict[str, np.ndarray]) -> Dict:
     return {"visual": visual, "text": text, "logit_scale": d["logit_scale"].reshape(())}
 
 
-def convert_timm_resnet(state: Dict[str, np.ndarray], depth: int = 50) -> Dict:
-    raise _not_ported("the timm ResNet weight reader", 8)
-
-
 def load_torch_state(path: str) -> Dict[str, np.ndarray]:
     """A reference checkpoint's tensors as f32 numpy arrays by name."""
     if path.endswith(".msgpack"):
@@ -290,16 +352,32 @@ def load_torch_state(path: str) -> Dict[str, np.ndarray]:
     return {k: v.float().numpy() for k, v in obj.items()}
 
 
+def swin_size(cfg: Config) -> str:
+    """The ``SWIN_SHAPES`` name of ``cfg``'s Swin trunk."""
+    b = cfg.model.backbone
+    shape = dict(embed_dim=b.swin_embed_dim, depths=tuple(b.swin_depths),
+                 num_heads=tuple(b.swin_num_heads))
+    for size, known in SWIN_SHAPES.items():
+        if known == shape:
+            return size
+    raise ValueError(f"no Swin checkpoint layout has the shape {shape}")
+
+
 def segmenter_state(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
-    """A d2 Mask2Former checkpoint as the port's ``segmenter`` state_dict
-    keys (without the ``segmenter.`` prefix), at ``cfg``'s depths.  The
-    SimpleBaseline decoder has the CLIP embedding head: a checkpoint with a
-    class head (a COCO Mask2Former) leaves it at its init."""
+    """A d2 Mask2Former checkpoint (ResNet or Swin) as the port's
+    ``segmenter`` state_dict keys (without the ``segmenter.`` prefix), at
+    ``cfg``'s depths; for ``timm_resnet`` a timm ResNet checkpoint, as the
+    ``backbone`` keys alone.  The SimpleBaseline decoder has the CLIP
+    embedding head: a checkpoint with a class head (a COCO Mask2Former)
+    leaves it at its init."""
     m = cfg.model
-    if m.backbone.name != "resnet":
-        raise _not_ported(f"the {m.backbone.name!r} backbone's weight reader", 8)
+    state = load_torch_state(path)
+    if m.backbone.name == "timm_resnet":
+        return params_from_flax({"backbone": convert_timm_resnet(state, m.backbone.depth)})
+    swin = m.backbone.name == "swin"
     tree = convert_mask2former(
-        load_torch_state(path), depth=m.backbone.depth,
+        state, depth=m.backbone.depth,
         enc_layers=m.pixel_decoder.transformer_enc_layers,
-        dec_layers=m.transformer_decoder.dec_layers, head="embedding")
+        dec_layers=m.transformer_decoder.dec_layers, head="embedding",
+        backbone="swin" if swin else "resnet", swin_size=swin_size(cfg) if swin else "base")
     return params_from_flax(tree)

@@ -1,10 +1,12 @@
-"""PyTorch port, BriVIS against the JAX package on the CPU in f32: the three
-temporal resamplers and their split methods, the rank-3 (1-D Conv) kernels of
-``convert`` and the resampler's parameter groups, the Brownian-bridge loss,
-``set_criterion`` with a fixed assignment and ``tracking_match``, the BriVIS
+"""PyTorch port, BriVIS against the JAX package on the CPU in f32: the BriVIS
 forward with and without the aux layers' CLIP logits, ``make_eval_fn``, the
-loss and its gradients under both matcher sources, one bf16 AMP loss; then
-stage 2 through the CLI from a SANOnline checkpoint.
+loss and its gradients under both matcher sources; and the shapes, weights
+and helpers of the BriVIS tests split off so that no file holds more than 4
+(``test_torch_port_brivis_resampler.py``: the three resamplers and their
+split; ``_parts.py``: the rank-3 kernels of ``convert``, the groups,
+``set_criterion`` with a fixed assignment and ``tracking_match``;
+``_bridge.py``: the Brownian-bridge loss and one bf16 AMP loss; ``_cli.py``:
+stage 2 through the CLI from a SANOnline checkpoint).
 
 Shapes: ``tests/test_torch_port_san.py``'s tiny SAN (64x96 frames, Q=8,
 hidden 64, the tiny CLIP "TINY/8") with 2 resampler layers and T=3 frames.
@@ -126,136 +128,7 @@ def _jax_resampler(name):
     return jax_resampler.TemporalResampler(**kw)
 
 
-@pytest.mark.parametrize("name", RESAMPLERS)
-def test_resampler_and_its_split_match_jax(name):
-    rng = np.random.RandomState(3)
-    mod = _port_resampler(name, seed=3)
-    jmod = _jax_resampler(name)
-    tree = {"params": flax_from_state_dict(mod.state_dict())}
-    x, mf, af, ms_feats, ms_pos = _resampler_inputs(rng)
-    raw = name == "raw"
-    extra = (ms_feats, ms_pos) if raw else ()
-    ref = jax.jit(lambda p, *a: jmod.apply(p, *a))(
-        tree, *jax.tree.map(jnp.asarray, (x, mf, af, *extra)))
-    args = [torch.from_numpy(a) for a in (x, mf, af)]
-    if raw:
-        args += [[torch.from_numpy(a) for a in ms_feats], [torch.from_numpy(a) for a in ms_pos]]
-    with torch.no_grad():
-        got = mod(*args)
-        b, t = x.shape[:2]
-        if raw:  # the halves, layer by layer, in windows of 2 frames
-            seq = resampler._to_sequences(args[0])
-            for i in range(LAYERS):
-                pf = resampler._to_frames(mod.temporal_half(seq, i), b)
-                lvl = i % 3
-                pf = torch.cat([mod.frame_half(pf[j:j + 2], args[3][lvl][j:j + 2], args[4][lvl],
-                                               i) for j in range(0, b * t, 2)])
-                seq = resampler._to_sequences(pf.reshape(b, t, Q, HID))
-            final = mod.finalize_embeds(resampler._to_frames(seq, b)).reshape(b, t, Q, HID)
-        else:
-            final = mod.final_embeds(args[0])
-        masks, biases = mod.predict_frames(final.reshape(b * t, *final.shape[2:]), *args[1:3])
-    nq = 6 if name == "decoupled" else Q
-    shapes = {"pred_masks_all": (LAYERS + 1, b, nq, t, 6, 8),
-              "attn_biases_all": (LAYERS + 1, b * t, 4, nq, 3, 4),
-              "pred_embeds": (b, t, nq, HID)}
-    for k, shape in shapes.items():
-        assert tuple(got[k].shape) == shape, k
-        assert _rel(got[k], ref[k]) <= SPLIT_REL_TO_MAX, k
-    assert _rel(final, got["pred_embeds"]) <= SPLIT_REL_TO_MAX
-    assert _rel(masks, got["pred_masks_all"][-1].transpose(1, 2).reshape(b * t, nq, 6, 8)) \
-        <= SPLIT_REL_TO_MAX
-    assert _rel(biases, got["attn_biases_all"][-1]) <= SPLIT_REL_TO_MAX
-
-
-def test_resampler_sees_appended_frames():
-    """The temporal self-attention is not masked: frames appended to a video
-    change its real frames' outputs (why the engine pads as JAX's does)."""
-    mod = _port_resampler("temporal", seed=4)
-    x = torch.from_numpy(np.random.RandomState(4).randn(1, 5, Q, HID).astype(np.float32))
-    with torch.no_grad():
-        real = mod.final_embeds(x)
-        padded = mod.final_embeds(torch.cat([x, x[:, -1:].expand(1, 3, Q, HID)], 1))[:, :5]
-    assert _rel(padded, real) > 1e-2
-
-
-def test_even_conv_kernels_raise():
-    with pytest.raises(ValueError, match="must be odd"):
-        resampler.TemporalResampler(64, 128, 4, 1, (4, 3))
-
-
-def test_rank3_kernels_round_trip_and_convolve_as_flax():
-    rng = np.random.RandomState(5)
-    conv = init_params(torch.nn.Conv1d(6, 4, 5), seed=5)
-    tree = flax_from_state_dict(conv.state_dict())
-    assert tree["kernel"].shape == (5, 6, 4)                   # flax (k, in, out)
-    np.testing.assert_array_equal(tree["kernel"],
-                                  conv.weight.detach().numpy().transpose(2, 1, 0))
-    back = params_from_flax(tree)
-    assert set(back) == {"weight", "bias"}
-    assert torch.equal(back["weight"], conv.weight.detach())
-    # lecun-normal over fan-in in * k, as flax draws it
-    big = init_params(torch.nn.Conv1d(64, 64, 5), seed=6).weight
-    assert abs(big.std().item() - (64 * 5) ** -0.5) < 0.1 * (64 * 5) ** -0.5
-    x = rng.randn(3, 9, 6).astype(np.float32)                   # (N, T, C) channels-last
-    ref = fnn.Conv(4, (5,), padding="VALID").apply({"params": tree}, jnp.asarray(x))
-    with torch.no_grad():
-        got = conv(torch.from_numpy(x).transpose(1, 2)).transpose(1, 2)
-    assert _rel(got, ref) <= 1e-5
-
-
-def test_brivis_tree_loads_into_the_port_and_groups_match_jax():
-    """The JAX model's parameter tree (shapes by ``eval_shape``) loads into the
-    port strictly, for each resampler; the groups equal JAX's ``label_params``
-    on the same tree; the decoupled queries draw N(0, 1)."""
-    for name in RESAMPLERS:
-        jcfg, cfg = brivis_cfg(JaxConfig, name), brivis_cfg(Config, name)
-        jm = jax_train.build_model(jcfg)
-        shapes = jax.eval_shape(lambda: jm.init(
-            jax.random.PRNGKey(0), jnp.zeros((T, H, W, 3)), T, jnp.zeros((K, D))))["params"]
-        rng = np.random.RandomState(0)
-        tree = jax.tree.map(lambda s: np.asarray(rng.randn(*s.shape), np.float32), shapes)
-        model = load_flax_params(train.build_model(cfg, device="cpu"), tree)
-        jlabels = {"/".join(k.key for k in path): label for path, label in
-                   jax.tree_util.tree_flatten_with_path(
-                       jax_label_params(tree, ("segmenter", "clip_adapter")))[0]}
-        plabels = label_params(model.named_parameters(), ("segmenter", "clip_adapter"))
-        got = {"/".join(flax_path(n, p.dim())): plabels[n] for n, p in model.named_parameters()}
-        assert got == jlabels, name
-        res = {k: v for k, v in got.items() if k.startswith("resampler/")}
-        assert res["resampler/short0_conv1/kernel"] == "main"
-        assert res["resampler/short0_conv1/bias"] == "nodecay"
-        assert not any(v == "frozen" for v in res.values())
-        assert all(v == "frozen" for k, v in got.items()
-                   if k.startswith(("segmenter/", "clip_adapter/")))
-        if name == "decoupled":
-            q = init_params(train.build_model(cfg, device="cpu"), seed=1).resampler.query_emb
-            assert abs(q.std().item() - 1.0) < 0.2 and res["resampler/query_emb"] == "main"
-
-
 # ---- the losses ----
-
-@pytest.mark.parametrize("neg_log", [True, False], ids=["neg_log", "ratio"])
-def test_brownian_bridge_loss_matches_jax(neg_log):
-    rng = np.random.RandomState(6)
-    b, t, q, c = 2, 6, 5, 16
-    e = rng.randn(b, t, q, c).astype(np.float32)
-    key = jax.random.PRNGKey(6)
-    mid = np.asarray(jax.random.randint(key, (b * q,), 1, t - 1))
-    assert len(set(mid.tolist())) > 1
-
-    def jfn(x):
-        bc, htm = jax_brownian(key, x, neg_log=neg_log)
-        return bc + 2.0 * htm, (bc, htm)
-
-    (_, (jbc, jhtm)), jgrad = jax.jit(jax.value_and_grad(jfn, has_aux=True))(jnp.asarray(e))
-    x = torch.from_numpy(e).requires_grad_(True)
-    bc, htm = brownian_bridge_loss(torch.Generator(), x, neg_log=neg_log,
-                                   draw_mid=lambda g, n, tt: torch.from_numpy(mid).long())
-    grad, = torch.autograd.grad(bc + 2.0 * htm, x)
-    np.testing.assert_allclose(bc.item(), float(jbc), rtol=BROWNIAN_RTOL)
-    np.testing.assert_allclose(htm.item(), float(jhtm), rtol=BROWNIAN_RTOL)
-    assert _rel(grad, jgrad) <= 1e-5
 
 
 def _criterion_inputs(rng, t=3, q=6, h=8, w=12):
@@ -271,58 +144,6 @@ def _criterion_inputs(rng, t=3, q=6, h=8, w=12):
 
 def _settings(mod):
     return mod.CriterionSettings(num_classes=K, num_points=24)
-
-
-def test_set_criterion_fixed_assignment_and_tracking_match_match_jax():
-    rng = np.random.RandomState(7)
-    logits, masks, labels, tmasks, valid, fv = _criterion_inputs(rng)
-    _, _, _, draw = _batch(np.random.RandomState(8))
-    jt = JaxTargets(labels=jnp.asarray(labels, jnp.int32), masks=jnp.asarray(tmasks),
-                    valid=jnp.asarray(valid), frame_valid=jnp.asarray(fv))
-    pt = ClipTargets(torch.from_numpy(labels), torch.from_numpy(tmasks),
-                     torch.from_numpy(valid), torch.from_numpy(fv))
-    fixed = np.array([[3, 0, 5], [1, 4, 2]])
-    lg_all = np.stack([logits.mean(1), logits[:, 0]])             # (2, B, Q, K+1)
-    mk_all = np.stack([masks, masks[:, ::-1]])
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jcrit, "sorted_uniform_points",
-                   lambda key, batch, p: jnp.asarray(draw(batch[0], p)))
-
-        @jax.jit
-        def ref(lg, mk, lg_t, mk_t):
-            losses, _ = jcrit.set_criterion(jax.random.PRNGKey(0), lg, mk, jt, _settings(jcrit),
-                                            fixed_assignment=jnp.asarray(fixed, jnp.int32))
-            return losses, jcrit.tracking_match(jax.random.PRNGKey(1), lg_t, mk_t, jt,
-                                                _settings(jcrit))
-
-        jlosses, jtrack = ref(jnp.asarray(lg_all), jnp.asarray(mk_all), jnp.asarray(logits),
-                              jnp.asarray(masks))
-    pdraw = lambda g, b, p: torch.from_numpy(draw(b[0], p))  # noqa: E731
-    solved = []
-    orig = criterion.batched_hungarian
-
-    def counting(cost):
-        solved.append(cost.shape)
-        return orig(cost)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(criterion, "batched_hungarian", counting)
-        losses, last = criterion.set_criterion(
-            torch.Generator(), torch.from_numpy(lg_all), torch.from_numpy(mk_all.copy()), pt,
-            _settings(criterion), pdraw, fixed_assignment=torch.from_numpy(fixed))
-        assert not solved  # no matching with an assignment given
-        track = criterion.tracking_match(torch.Generator(), torch.from_numpy(logits),
-                                         torch.from_numpy(masks), pt, _settings(criterion),
-                                         pdraw)
-    assert solved == [(B + 1, N, 6)] * T  # one Hungarian call a frame
-    assert torch.equal(last, torch.from_numpy(fixed))
-    for k in ("loss_ce", "loss_mask", "loss_dice", "total"):
-        np.testing.assert_allclose(losses[k].numpy(), np.asarray(jlosses[k]), rtol=LOSS_RTOL,
-                                   err_msg=k)
-    np.testing.assert_array_equal(track.numpy()[valid], np.asarray(jtrack)[valid])
-    # distinct queries per clip, each slot on a query free in its first frame
-    for row, v in zip(track.numpy(), valid):
-        assert len(set(row[v].tolist())) == v.sum()
 
 
 # ---- the model ----
@@ -456,76 +277,8 @@ def test_brivis_loss_and_gradients_match_jax(brivis, image_matcher):
         assert err <= GRAD_REL_NORM, (k, err)
 
 
-def test_brivis_amp_loss_within_bf16_bound_of_jax(brivis):
-    (loss, metrics, grads), (jloss, jmetrics, _) = _losses(brivis, True, True)
-    assert all(v.dtype == np.float32 for v in grads.values())  # f32 masters
-    assert np.isfinite(loss) and abs(loss - jloss) <= AMP_LOSS_RTOL * abs(jloss)
-    for k in jmetrics:
-        assert abs(metrics[k] - jmetrics[k]) <= AMP_LOSS_RTOL * abs(jmetrics[k]), k
-
-
 # ---- stage 2 through the CLI ----
 
 BRIVIS_YAML = SAN_YAML.replace("meta_architecture: SANOnline", "meta_architecture: BriVIS\n"
                                "  freeze_segmenter: true\n"
                                "  resampler: {{name: temporal, num_layers: 2}}")
-
-
-def test_cli_stage2_from_a_san_checkpoint(cli_root):  # noqa: F811
-    """SANOnline trains a step and saves; BriVIS grafts its segmenter and
-    clip_adapter, trains 2 steps across the matcher switch and evaluates;
-    the grafted subtrees stay the SAN checkpoint's bit for bit."""
-    root, _ = cli_root
-    paths = {}
-    for name, text in (("san", SAN_YAML), ("brivis", BRIVIS_YAML)):
-        paths[name] = os.path.join(root, f"stage_{name}.yaml")
-        with open(paths[name], "w") as f:
-            f.write(text.format(d=D, root=root, train="torch_port_cli_train",
-                                eval="torch_port_cli_eval"))
-    san_out, out = os.path.join(root, "stage1"), os.path.join(root, "stage2")
-    san_ckpt = os.path.join(san_out, "checkpoints")
-    train_net_torch.main(["--config-file", paths["san"], "--device", "cpu",
-                          f"output_dir={san_out}", "solver.max_iter=1"])
-    switched = []
-    use = train_net_torch.use_brivis_matcher
-
-    def recording(step, cfg, num_text_classes, image_matcher):
-        switched.append((step.state.step, image_matcher))
-        use(step, cfg, num_text_classes, image_matcher)
-
-    run = ["--config-file", paths["brivis"], "--device", "cpu", f"output_dir={out}",
-           f"model.weights={san_ckpt}", "solver.max_iter=2", "input.sampling_frame_num=3"]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(train_net_torch, "use_brivis_matcher", recording)
-        train_net_torch.main(run)
-    assert switched == [(1, False)]  # at half of max_iter
-    train_net_torch.main(run + ["--eval-only", "--weights", os.path.join(out, "checkpoints")])
-    san, brivis = (load_checkpoint(d)["params"] for d in (san_ckpt, os.path.join(out,
-                                                                                  "checkpoints")))
-    grafted = [k for k in brivis if k.startswith(("segmenter.", "clip_adapter."))]
-    assert grafted and set(grafted) == set(san)
-    for k in grafted:
-        assert torch.equal(brivis[k], san[k]), k
-    fresh = init_params(train.build_model(load_config(paths["brivis"]), device="cpu"), seed=0)
-    moved = [k for k, v in fresh.state_dict().items() if k.startswith("resampler.")
-             and not torch.equal(v, brivis[k])]
-    assert moved
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        lines = [json.loads(x) for x in f]
-    assert [r["step"] for r in lines] == [1, 2]
-    assert all(np.isfinite(r[k]) for r in lines for k in ("total_loss", "bc_loss", "htm_loss"))
-    with open(os.path.join(out, "metrics_torch_port_cli_eval.json")) as f:
-        metrics = json.load(f)
-    assert "AP" in metrics and all(np.isfinite(v) for v in metrics.values())
-
-
-def test_cli_refuses_the_recipes_flax_weights(cli_root):  # noqa: F811
-    root, _ = cli_root
-    path = os.path.join(root, "stage_msgpack.yaml")
-    with open(path, "w") as f:
-        f.write(BRIVIS_YAML.format(d=D, root=root, train="torch_port_cli_train",
-                                   eval="torch_port_cli_eval"))
-    with pytest.raises(SystemExit, match="msgpack"):
-        train_net_torch.main(["--config-file", path, "--device", "cpu",
-                              f"output_dir={os.path.join(root, 'never')}",
-                              "model.weights=work_dirs/san/model_final.msgpack"])

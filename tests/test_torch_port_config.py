@@ -11,6 +11,9 @@ import torch
 import openvis_tpu.config as jax_config
 from openvis_tpu_torch import config as port_config
 from openvis_tpu_torch import train
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -18,6 +18,9 @@ from openvis_tpu_torch.convert import (
     params_from_flax,
 )
 from openvis_tpu_torch.models.pixel_decoder import ring_bias
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 K, D, HID = 5, 32, 64
 

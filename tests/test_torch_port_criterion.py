@@ -16,6 +16,9 @@ import openvis_tpu.losses.criterion as jcrit
 from openvis_tpu.structures import ClipTargets as JaxTargets
 from openvis_tpu_torch.losses import criterion
 from openvis_tpu_torch.structures import ClipTargets
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 L, B, Q, C, N = 3, 2, 8, 5, 3
 H, W, TH, TW = 16, 24, 64, 96

@@ -23,6 +23,9 @@ from openvis_tpu.native import native_iou_matrix as jax_native_iou_matrix
 from openvis_tpu_torch import config as port_config
 from openvis_tpu_torch import native
 from openvis_tpu_torch.data import catalog, loader, mapper, rle, synthetic, transforms
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 REPO = Path(__file__).resolve().parent.parent
 DATASET = "torch_port_data_synth"

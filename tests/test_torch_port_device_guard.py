@@ -22,6 +22,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from openvis_tpu_torch.ops import hungarian_cuda, msda_cuda, point_sample_cuda
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 CSRC = Path(__file__).resolve().parent.parent / "openvis_tpu_torch" / "csrc"
 LEVELS = [(2, 3)]

@@ -8,15 +8,13 @@ resolution to the 64x96 canvas, and the crop back up to 72x96).  Settings:
 windows of 4 (three windows for the first video, the last a 2-frame tail)
 and the whole video (``window_inference: false``, ``max_frames`` 16), in f32;
 the whole video under AMP (bf16).  The JAX engine pads windows and the time
-axis; the port runs the real frames only, which must not change a result."""
+axis; the port runs the real frames only, which must not change a result.
+The engine's API checks (the caller's parameters, what it refuses, a run
+without JAX) are in ``tests/test_torch_port_engine_api.py``."""
 
 import dataclasses
-import inspect
 import json
 import os
-import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import jax
@@ -34,7 +32,7 @@ from openvis_tpu_torch import config as port_config
 from openvis_tpu_torch import engine, train
 from openvis_tpu_torch.convert import load_flax_params
 from openvis_tpu_torch.data import catalog, synthetic
-from openvis_tpu_torch.evals.burst_eval import BURSTEvaluator
+from torch_port_common import one_thread_fixture
 
 REPO = Path(__file__).resolve().parent.parent
 K, D = 2, 32
@@ -59,6 +57,8 @@ METRIC_ATOL = 1e-6
 # its pixels (observed: 0.074 and 99.4 % at worst)
 BF16_SCORE_ATOL = 0.1
 BF16_MASK_AGREE = 0.98
+
+one_thread = one_thread_fixture()
 
 
 def _cfg(mod, root: str, window_inference: bool, amp: bool, out: str):
@@ -119,18 +119,15 @@ def runs(setup):
     for name, (windowed, amp) in SETTINGS.items():
         jcfg = _cfg(jax_config, root, windowed, amp, f"jax_{name}")
         pcfg = _cfg(port_config, root, windowed, amp, f"port_{name}")
-        before = {n: p.detach().clone() for n, p in pm.named_parameters()}
         jmet = jax_engine.evaluate_dataset(jcfg, jm, params, DATASET, text)
         pmet = engine.evaluate_dataset(pcfg, pm, DATASET, text, device="cpu")
-        unchanged = all(torch.equal(before[n], p) and p.dtype == torch.float32
-                        for n, p in pm.named_parameters())
-        out[name] = (jmet, _predictions(jcfg), pmet, _predictions(pcfg), unchanged)
+        out[name] = (jmet, _predictions(jcfg), pmet, _predictions(pcfg))
     return out
 
 
 @pytest.mark.parametrize("name", ["windowed_f32", "whole_f32"])
 def test_engine_matches_jax_f32(runs, name):
-    jmet, jpred, pmet, ppred, _ = runs[name]
+    jmet, jpred, pmet, ppred = runs[name]
     assert [(p["video_id"], p["category_id"]) for p in ppred] == \
         [(p["video_id"], p["category_id"]) for p in jpred]
     assert len(ppred) == 10 * len(VIDEOS)
@@ -146,8 +143,8 @@ def test_engine_matches_jax_f32(runs, name):
 def test_windowed_and_whole_video_agree(runs):
     """The online arch makes the windowing invisible: the port's two f32 runs
     agree (within the f32 bounds), as the JAX engine's do."""
-    _, _, met_w, pred_w, _ = runs["windowed_f32"]
-    _, _, met_v, pred_v, _ = runs["whole_f32"]
+    _, _, met_w, pred_w = runs["windowed_f32"]
+    _, _, met_v, pred_v = runs["whole_f32"]
     assert [(p["video_id"], p["category_id"]) for p in pred_w] == \
         [(p["video_id"], p["category_id"]) for p in pred_v]
     for a, b in zip(pred_w, pred_v):
@@ -157,7 +154,7 @@ def test_windowed_and_whole_video_agree(runs):
 
 
 def test_engine_matches_jax_amp(runs):
-    jmet, jpred, pmet, ppred, _ = runs["whole_amp"]
+    jmet, jpred, pmet, ppred = runs["whole_amp"]
     assert len(ppred) == len(jpred) == 10 * len(VIDEOS)
     for vid in range(1, len(VIDEOS) + 1):
         ps = sorted(p["score"] for p in ppred if p["video_id"] == vid)
@@ -172,66 +169,3 @@ def test_engine_matches_jax_amp(runs):
     assert set(pmet) == set(jmet)
     for v in pmet.values():
         assert np.isfinite(v)
-
-
-def test_amp_eval_leaves_the_callers_parameters(runs):
-    for name in SETTINGS:
-        assert runs[name][4], name
-
-
-def test_engine_refuses_what_is_not_ported(setup):
-    root, text, *_ , pm = setup
-    cfg = _cfg(port_config, root, True, False, "refused")
-    # the CLIP ensemble is ported (tests/test_torch_port_clip_ensemble.py); with
-    # a mask-adapted tower it is not
-    adapted = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, clip_adapter=dataclasses.replace(cfg.model.clip_adapter, name="bg_adapted")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=lambda x: x,
-                                device="cpu")
-    # BriVIS, OpenVISOnline and the offline archs are ported
-    # (tests/test_torch_port_brivis_engine.py, tests/test_torch_port_openvis_engine.py,
-    # tests/test_torch_port_offline_engine.py); OV2Seg and MasQCLIP are not
-    for arch, item in (("OV2SegOnline", "8.5"), ("OV2Seg", "8.5"), ("MasQCLIP", "8.7")):
-        unported = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, meta_architecture=arch))
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            engine.evaluate_dataset(unported, pm, DATASET, text, device="cpu")
-    # BURST evaluation is ported (tests/test_torch_port_burst.py)
-    burst = engine.make_evaluator(catalog.get("burst_val"))
-    assert isinstance(burst, BURSTEvaluator)
-    assert burst.class_splits == catalog.burst_class_splits()
-    assert len(burst.class_splits["common"]) + len(burst.class_splits["uncommon"]) == 482
-
-
-def test_engine_runs_without_jax_in_fresh_interpreter(setup):
-    """The port's evaluate_dataset on the CPU imports neither JAX nor the
-    JAX package, and its CPU path launches no kernel."""
-    root = setup[0]
-    info = dataclasses.asdict(catalog.get(DATASET))
-    script = textwrap.dedent(f"""
-        import dataclasses, os, sys
-        sys.path.insert(0, {str(REPO)!r})
-        import numpy as np
-        from openvis_tpu_torch import config, engine, train
-        from openvis_tpu_torch.convert import init_params
-        from openvis_tpu_torch.data import catalog
-        from openvis_tpu_torch.ops import hungarian_cuda, msda_cuda
-        K, D, DATASET = {K}, {D}, {DATASET!r}
-    """) + inspect.getsource(_cfg) + textwrap.dedent(f"""
-        catalog.register(catalog.DatasetInfo(**{info!r}))
-        cfg = _cfg(config, {root!r}, True, True, "fresh")
-        model = init_params(train.build_model(cfg, device="cpu"), seed=1)
-        text = np.eye(K, D, dtype=np.float32)
-        metrics = engine.evaluate_dataset(cfg, model, DATASET, text, device="cpu")
-        assert set(metrics) >= {{"AP", "AP50", "AR10"}}, metrics
-        assert all(np.isfinite(v) for v in metrics.values()), metrics
-        assert msda_cuda.launches == 0 and hungarian_cuda.launches == 0
-        leaked = [m for m in ("jax", "openvis_tpu") if m in sys.modules]
-        assert not leaked, leaked
-        print("OK")
-    """)
-    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                          timeout=300, cwd=root)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip().endswith("OK")

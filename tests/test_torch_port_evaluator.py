@@ -17,6 +17,9 @@ from openvis_tpu.evals import ytvis_eval as jax_eval
 from openvis_tpu.utils.image import resize_bilinear_torch_hw as jax_resize_hw
 from openvis_tpu_torch.data import catalog, rle
 from openvis_tpu_torch.evals import ytvis_eval
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 # f32 against f64 arithmetic at the > 0 threshold: only pixels whose logit
 # lies within a few f32 ulps of 0 may differ (observed: none)

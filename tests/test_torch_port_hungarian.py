@@ -12,6 +12,9 @@ from openvis_tpu.ops.hungarian import batched_hungarian as jax_batched_hungarian
 from openvis_tpu.ops.hungarian_pallas import batched_hungarian_pallas
 from openvis_tpu_torch.ops import hungarian_cuda
 from openvis_tpu_torch.ops.hungarian import batched_hungarian, hungarian_plain
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 
 def _total(cost, cols):

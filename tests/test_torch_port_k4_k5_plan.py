@@ -21,6 +21,9 @@ import torch
 
 from openvis_tpu_torch.ops import hungarian_cuda, point_sample_cuda
 from openvis_tpu_torch.ops.hungarian import hungarian_plain
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 CSRC = Path(hungarian_cuda.__file__).resolve().parent.parent / "csrc"
 INF = np.float32(1e15)  # the solver's sentinel for used columns

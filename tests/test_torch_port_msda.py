@@ -15,6 +15,9 @@ import openvis_tpu.ops.msda_pallas as MP
 from openvis_tpu.ops.msda import ms_deform_attn_xla
 from openvis_tpu_torch.ops import msda_cuda
 from openvis_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 
 def _inputs(seed, shapes, b=2, nh=4, ch=32, p=4, lq=17):

@@ -22,6 +22,9 @@ from openvis_tpu_torch.ops.msda import (
     ms_deform_attn_bwd_plain,
     ms_deform_attn_plain,
 )
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 
 def _inputs(seed, shapes, b=2, nh=2, ch=32, p=4, lq=13):

@@ -20,6 +20,9 @@ from openvis_tpu_torch.ops.msda_cuda import (
     THREADS,
     launch_plan,
 )
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 CSRC = Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
 F32, BF16 = torch.float32, torch.bfloat16

@@ -1,14 +1,16 @@
 """PyTorch port, the offline (clip-level) architectures against the JAX package
-on the CPU in f32: the 3-D position encoding; the video-mode decoder with
-each of its four heads (``class``, ``embedding``, ``proposal``,
-``side_adapter``) on B=2 clips of T=3 frames, its forward, its gradients to
-the parameters and the inputs, its parameter tree and groups and the class
-head's init; then the forward, loss and gradients of VideoMaskFormer, MinVIS,
-offline SimpleBaseline and offline OpenVIS (``video_proposal`` and
-``frame_proposal``): offline SimpleBaseline's gradients to every parameter,
-the others' to their outputs (the decoder's own gradients are held above);
-offline SAN's forward and its loss's named error; and the CLI training and
-evaluating an offline SimpleBaseline yaml.
+on the CPU in f32: the 3-D position encoding and offline SimpleBaseline's
+loss and gradients to every parameter here; the shapes, weights and helpers
+of the offline tests split off so that no file holds more than 4: the
+video-mode decoder with each of its four heads (``class``, ``embedding``,
+``proposal``, ``side_adapter``) on B=2 clips of T=3 frames
+(``test_torch_port_offline_decoder.py``: its forward;
+``_decoder_grads.py``: its gradients to the parameters and the inputs;
+``_tree.py``: its parameter tree, groups and the class head's init), the
+forward, loss and gradients to their outputs of VideoMaskFormer, MinVIS and
+offline OpenVIS (``video_proposal``, ``frame_proposal``; ``_archs.py``),
+offline SAN's forward and its loss's named error and the CLI with an offline
+SimpleBaseline yaml (``_san.py``).
 
 Shapes: the tiny segmenter of ``tests/test_torch_parity_e2e.py`` (64x96
 frames, 2 encoder and 2 decoder layers, Q=8, hidden 64) on T=3 frames; SAN's
@@ -217,68 +219,6 @@ def decoder_runs():
     return got, ref
 
 
-@pytest.mark.parametrize("head", HEADS)
-def test_video_decoder_forward_matches_jax(decoder_runs, head):
-    got, ref = decoder_runs
-    outs = got[head][0]
-    l = DEC_LAYERS + 1
-    shapes = {"class": (l, DEC_B, Q, K + 1), "embedding": (l, DEC_B, Q, D),
-              "proposal": (l, DEC_B, Q, 2),
-              "side_adapter": (l, DEC_B, T, CLIP_HEADS, Q, 4, 6)}
-    key = _decoder_out_keys(head)[1]
-    assert outs[key].shape == shapes[head]
-    assert outs["pred_masks_all"].shape == (l, DEC_B, Q, T, 16, 24)
-    for k, v in outs.items():
-        assert _rel(v, ref[head][0][k]) <= DECODER_REL_TO_MAX, k
-
-
-@pytest.mark.parametrize("head", HEADS)
-def test_video_decoder_gradients_match_jax(decoder_runs, head):
-    got, ref = decoder_runs
-    _, pgrads, xgrads, mfgrad = got[head]
-    jp, jxs, jmf = ref[head][1]
-    _grads_close(pgrads, dict(_flat(jp)))
-    for g, j in zip(xgrads + [mfgrad], list(jxs) + [jmf]):
-        j = np.asarray(j)
-        assert np.linalg.norm(g - j) / np.linalg.norm(j) <= GRAD_REL_NORM
-
-
-@pytest.mark.parametrize("head", HEADS)
-def test_video_decoder_tree_groups_and_init_match_flax(head):
-    """The JAX decoder's parameter tree (shapes by ``eval_shape``) loads into
-    the port strictly and back out unchanged; the groups equal JAX's ``label_params``; the
-    head's Linears are drawn as flax's Dense: lecun-normal truncated at 2
-    sigma, zero biases."""
-    port, jdec = _decoders(head)
-    xs = [jnp.zeros((DEC_B * T, h, w, HID)) for h, w in LEVELS]
-    shapes = jax.eval_shape(lambda: jdec.init(jax.random.PRNGKey(0), xs,
-                                              jnp.zeros((DEC_B, T, 16, 24, HID)), T))["params"]
-    rng = np.random.RandomState(5)
-    jtree = jax.tree.map(lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
-    load_flax_params(port, jtree)  # strict: the same names and shapes
-    assert all(np.array_equal(v, dict(_flat(jtree))[k])
-               for k, v in _flat(flax_from_state_dict(port.state_dict())))
-    init_params(port, seed=3)
-    tree = flax_from_state_dict(port.state_dict())
-    jshapes = {k: tuple(v.shape) for k, v in
-               ((("/".join(str(getattr(p, "key", p)) for p in path)), leaf) for path, leaf in
-                jax.tree_util.tree_flatten_with_path(shapes)[0])}
-    assert {k: v.shape for k, v in _flat(tree)} == jshapes
-    jlabels = {"/".join(k.key for k in path): label for path, label in
-               jax.tree_util.tree_flatten_with_path(jax_label_params(tree))[0]}
-    plabels = label_params(port.named_parameters())
-    assert {"/".join(flax_path(n, p.dim())): plabels[n]
-            for n, p in port.named_parameters()} == jlabels
-    linears = [m for n, m in port.heads.named_modules()
-               if isinstance(m, torch.nn.Linear) and not n.startswith("mask_embed")]
-    assert linears
-    for lin in linears:
-        std = (1.0 / lin.in_features) ** 0.5
-        assert not lin.bias.any()
-        assert lin.weight.abs().max() <= 2 * std / 0.87962566103423978 + 1e-6
-        assert 0.5 * std < lin.weight.std().item() < 1.5 * std
-
-
 # ---- the whole models ----
 
 @pytest.fixture(scope="module")
@@ -467,86 +407,8 @@ def arch_runs(batch):
     return got, ref
 
 
-@pytest.mark.parametrize("arch_id", LOSS_ARCHS)
-def test_offline_arch_forward_loss_and_gradients_match_jax(arch_runs, arch_id):
-    got, ref = arch_runs
-    arch, decoder, ncls = ARCHS[arch_id]
-    out, loss, metrics, grads = got[arch_id]
-    jout, ((jloss, jmetrics), jgrads) = ref[arch_id]
-    _check_forward(out, jout, decoder, ncls)
-    _check_losses(loss, metrics, jloss, jmetrics)
-    for k, g in grads.items():
-        j = np.asarray(jgrads[k])
-        assert np.any(j), k
-        assert np.linalg.norm(g.numpy() - j) / np.linalg.norm(j) <= GRAD_REL_NORM, k
-
-
-def test_offline_san_forward_matches_jax_and_its_loss_raises(batch):
-    """Offline SAN's forward (the video decoder's per-frame biases through the
-    biased CLIP post-encode) with and without the aux layers' CLIP logits;
-    its loss, train step and loss closure raise the named error."""
-    frames, text, labels, masks, valid, _ = batch
-    cfg, jcfg = offline_san_cfg(Config), offline_san_cfg(JaxConfig)
-    model = _port_model(cfg, seed=11)
-    params = jax.tree.map(jnp.asarray, flax_from_state_dict(model.state_dict()))
-    jm = jax_train.build_model(jcfg)
-    keys = ("pred_logits_all", "pred_masks_all", "class_attn_biases_all")
-
-    def ref_fn(p, x, txt):
-        out = jm.apply({"params": p}, x, T, txt)
-        return {k: out[k] for k in keys}
-
-    ref = jax.jit(ref_fn)(params, jnp.asarray(frames), jnp.asarray(text))
-    with torch.no_grad():
-        out = model(torch.from_numpy(frames), T, torch.from_numpy(text))
-        last = train.eval_model(model)(torch.from_numpy(frames), T, torch.from_numpy(text))
-    l = 2 + 1
-    assert out["class_attn_biases_all"].shape == (l, B, T, CLIP_HEADS, Q, 4, 6)
-    assert out["pred_logits_all"].shape == (l, B, T, Q, K + 1)
-    assert out["pred_masks_all"].shape == (l, B, Q, T, 16, 24)
-    for k in keys:
-        assert _rel(out[k], ref[k]) <= FORWARD_REL_TO_MAX, k
-    # evaluation's model: the last layer's CLIP logits only
-    assert _rel(last["pred_logits"], ref["pred_logits_all"][-1]) <= FORWARD_REL_TO_MAX
-
-    targets = ClipTargets(torch.from_numpy(labels), torch.from_numpy(masks),
-                          torch.from_numpy(valid), torch.ones(B, N, T, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match=r"criterion\.py:290.*ROADMAP\.md §3"):
-        san.san_loss(torch.Generator(), out, targets, cfg.model, K, online=False)
-    with pytest.raises(NotImplementedError, match="offline SAN"):
-        train.build_train_step(cfg, model, K, device="cpu")
-    with pytest.raises(NotImplementedError, match="offline SAN"):
-        train.make_loss_fn(cfg, model, K)
-
-
 OFFLINE_YAML = CFG_YAML.replace("meta_architecture: SimpleBaselineOnline",
                                 "meta_architecture: SimpleBaseline").replace(
     "name: frame_embedding", "name: video_embedding").replace(
     "test: {{window_inference: true, window_size: 4, topk_per_video: 5}}",
     "test: {{window_inference: false, max_frames: 8, topk_per_video: 5}}")
-
-
-def test_cli_trains_and_evaluates_offline_simple_baseline(cli_root):  # noqa: F811
-    """Two clip-level steps and a checkpoint of an offline SimpleBaseline
-    yaml, then ``--eval-only`` through the CLIP ensemble: the eval video's 5
-    frames run as one shot of 8."""
-    root, _ = cli_root
-    path = os.path.join(root, "offline.yaml")
-    with open(path, "w") as f:
-        f.write(OFFLINE_YAML.format(d=D, root=root, train="torch_port_cli_train",
-                                    eval="torch_port_cli_eval"))
-    out = os.path.join(root, "out_offline")
-    run = ["--config-file", path, "--device", "cpu", f"output_dir={out}"]
-    train_net_torch.main(run)
-    train_net_torch.main(run + ["--eval-only", "--weights", os.path.join(out, "checkpoints")])
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        lines = [json.loads(x) for x in f]
-    assert [r["step"] for r in lines] == [1, 2]
-    assert all(np.isfinite(r[k]) for r in lines for k in ("total_loss", "loss_ce", "grad_norm"))
-    with open(os.path.join(out, "metrics_torch_port_cli_eval.json")) as f:
-        metrics = json.load(f)
-    assert "AP" in metrics and all(np.isfinite(v) for v in metrics.values())
-    with open(os.path.join(out, "results_torch_port_cli_eval.json")) as f:
-        preds = json.load(f)
-    assert preds and {p["category_id"] for p in preds} <= {1, 2}
-    assert all(len(p["segmentations"]) == 5 for p in preds)

@@ -8,7 +8,9 @@ SimpleBaseline through the CLIP ensemble (the ``test-tiny`` tower, ``bg_clip``),
 offline OpenVIS on its objectness (no tower), offline SAN (its per-frame CLIP
 logits averaged over the real frames) and MinVIS (the windowed online path,
 the no-object column dropped), each from one set of weights in both
-packages; the shapes are ``tests/test_torch_port_offline.py``'s."""
+packages; the shapes are ``tests/test_torch_port_offline.py``'s.  That the
+single shot must be padded as the JAX engine pads it:
+``tests/test_torch_port_offline_engine_pad.py``."""
 
 import dataclasses
 import json
@@ -146,20 +148,3 @@ def test_offline_engine_matches_jax_f32(runs, arch_id):
     assert set(pmet) == set(jmet) >= {"AP", "AP50", "AR10"}
     for k in jmet:
         assert abs(pmet[k] - jmet[k]) <= METRIC_ATOL, k
-
-
-def test_single_shot_pads_as_the_jax_engine(root):
-    """The video decoder's attention over the clip is not masked: the 5-frame
-    video's single shot of 8 (its last frame repeated) differs from a shot of
-    its 5 real frames, so the engine must pad as the JAX engine does."""
-    cfg = _cfg(port_config, "openvis", root, "pad")
-    model = init_params(train.build_model(cfg, device="cpu"), seed=2)
-    params = {n: p.detach() for n, p in model.named_parameters()}
-    fn = engine.make_single_shot_fn(cfg, model, pre_topk=True)
-    frames = torch.from_numpy(np.random.RandomState(3).randn(5, 64, 96, 3).astype(np.float32))
-    with torch.inference_mode():
-        probs5, masks5 = fn(params, frames, torch.zeros(K, D), torch.ones(5, dtype=torch.bool))
-        padded = torch.cat([frames, frames[-1:].expand(3, -1, -1, -1)])
-        probs8, masks8 = fn(params, padded, torch.zeros(K, D), torch.arange(8) < 5)
-    assert masks8.shape[1] == 8 and probs8.shape == probs5.shape == (8, 1)
-    assert not torch.allclose(masks8[:, :5], masks5, atol=1e-4)

@@ -270,30 +270,38 @@ def test_openvis_ov_scores_match_jax(tmp_path):
 
 def test_ov2seg_masqclip_and_the_unported_decoders_raise_their_items():
     """Offline OpenVIS builds over the video decoder (its parity:
-    tests/test_torch_port_offline.py); OV2Seg, MasQCLIP, their decoder and
-    backbone, the zero-shot decoders and Swin raise naming their ROADMAP.md
-    items."""
+    tests/test_torch_port_offline.py), and so do OV2Seg, its decoder, its
+    timm ResNet and the Swin trunk (tests/test_torch_port_ov2seg*.py,
+    tests/test_torch_port_swin*.py); MasQCLIP and the zero-shot decoders raise
+    naming their ROADMAP.md items."""
     cfg = openvis_cfg(Config)
     offline = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, meta_architecture="OpenVIS", transformer_decoder=dataclasses.replace(
             cfg.model.transformer_decoder, name="video_proposal")))
     assert train.build_model(offline, device="cpu").segmenter.video
-    for arch, item in (("OV2SegOnline", "8.5"), ("OV2Seg", "8.5"), ("MasQCLIP", "8.7")):
-        unported = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, meta_architecture=arch))
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            train.build_model(unported, device="cpu")
-    for name, item in (("ov2seg_frame", "8.5"), ("frame_zero_shot", "8.8"),
-                       ("video_zero_shot", "8.8")):
+    ov2seg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transformer_decoder=dataclasses.replace(
+            cfg.model.transformer_decoder, name="ov2seg_frame")))
+    for arch in ("OV2SegOnline", "OV2Seg"):
+        built = train.build_model(dataclasses.replace(ov2seg, model=dataclasses.replace(
+            ov2seg.model, meta_architecture=arch)), device="cpu")
+        assert built.segmenter.predictor.heads.head == "ov2seg"
+    unported = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, meta_architecture="MasQCLIP"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
+        train.build_model(unported, device="cpu")
+    heads = Segmenter(ov2seg.model).predictor.heads
+    clip_dim = cfg.model.transformer_decoder.clip_embed_dim
+    assert heads.zs_fc2.out_features == clip_dim and heads.object_embed.out_features == 2
+    for name, item in (("frame_zero_shot", "8.8"), ("video_zero_shot", "8.8")):
         decoder = dataclasses.replace(cfg.model, transformer_decoder=dataclasses.replace(
             cfg.model.transformer_decoder, name=name))
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             Segmenter(decoder)
-    for name, item in (("timm_resnet", "8.5"), ("swin", "8.6")):
+    for name, trunk in (("timm_resnet", "ResNet"), ("swin", "SwinTransformer")):
         backbone = dataclasses.replace(cfg.model, backbone=dataclasses.replace(
             cfg.model.backbone, name=name))
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            Segmenter(backbone)
+        assert type(Segmenter(backbone).backbone).__name__ == trunk
 
 
 OPENVIS_YAML = CFG_YAML.replace("meta_architecture: SimpleBaselineOnline",

@@ -19,6 +19,9 @@ from openvis_tpu.ops.select import kth_largest as jax_kth_largest
 from openvis_tpu_torch.ops import point_sample as ps
 from openvis_tpu_torch.ops import point_sample_cuda
 from openvis_tpu_torch.ops.select import kth_largest
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 
 def _sorted_points(rng, b, p):

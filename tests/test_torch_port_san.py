@@ -1,8 +1,11 @@
-"""PyTorch port, SANOnline against the JAX package on the CPU in f32: the CLIP
-attention with a dense bias and in the sos-split form, the adaptive max pool,
-the side adapter's front and post encodes, the SAN forward with and without
-the aux layers' CLIP logits, the loss and its gradients (the frozen CLIP
-tower getting none) and one bf16 AMP forward; then the CLI with a SAN yaml.
+"""PyTorch port, SANOnline against the JAX package on the CPU in f32: the SAN
+forward with and without the aux layers' CLIP logits, the loss and its
+gradients (the frozen CLIP tower getting none) and one bf16 AMP forward; and
+the shapes, weights and helpers of the SAN tests split off so that no file
+holds more than 4 (``test_torch_port_san_adapter.py``: the CLIP attention
+with a dense bias and in the sos-split form, the side adapter's front and
+post encodes, offline SAN's named error; ``_parts.py``: the adaptive max
+pool and the CLI with a SAN yaml).
 
 Shapes: the tiny CLIP of ``tests/test_torch_parity_e2e_san.py`` ("TINY/8",
 4 blocks split at 3, taps 1..3; set into both packages' shape tables) and
@@ -114,58 +117,6 @@ def san():
     text = rng.randn(K, D).astype(np.float32)
     text /= np.linalg.norm(text, axis=-1, keepdims=True)
     return model, params, frames, text, rng
-
-
-@pytest.mark.parametrize("form", ["dense", "sos_split"])
-def test_clip_attention_matches_jax(form):
-    rng = np.random.RandomState(1)
-    c, heads, sos, l = 64, 4, 3, 1 + 16
-    attn = init_params(clip_model.CLIPAttention(c, heads), seed=1)
-    tree = flax_from_state_dict(attn.state_dict())
-    x = rng.randn(2, sos + l, c).astype(np.float32)
-    if form == "dense":
-        bias, kw = rng.randn(2, heads, sos + l, sos + l).astype(np.float32), {}
-    else:
-        bias, kw = rng.randn(2, heads, sos, l).astype(np.float32) * 3, {"sos_q": sos}
-    ref = jax_clip.CLIPAttention(c, heads).apply({"params": tree}, jnp.asarray(x),
-                                                 attn_bias=jnp.asarray(bias), **kw)
-    with torch.no_grad():
-        got = attn(torch.from_numpy(x), attn_bias=torch.from_numpy(bias), **kw)
-    assert _rel(got, ref) <= REL_TO_MAX
-
-
-@pytest.mark.parametrize("src", [(30, 54), (31, 45), (14, 14)], ids=["train", "odd", "same"])
-def test_adaptive_max_pool_matches_jax(src):
-    """Exact: both take the maximum of the same window."""
-    x = np.random.RandomState(2).randn(2, 3, 5, *src).astype(np.float32)
-    ref = np.asarray(jax_sa.adaptive_max_pool(jnp.asarray(x), (14, 14)))
-    got = side_adapter.adaptive_max_pool(torch.from_numpy(x), (14, 14)).numpy()
-    assert got.shape == (2, 3, 5, 14, 14)
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_side_adapter_front_and_post_encode_match_jax(san):
-    model, params, frames, _, rng = san
-    adapter = model.clip_adapter
-    jmod = jax_sa.SideAdapter(clip_model_name=TINY, out_dims=HID, broken_idx=BROKEN,
-                              merge_ids=MERGE, num_queries=Q)
-    jp = {"params": params["clip_adapter"]}
-    raw = (frames * 50 + 120).astype(np.float32)
-    biases = rng.randn(B * T, TINY_CLIP["vision_heads"], Q, 4, 6).astype(np.float32) * 4
-
-    def both(p, x, b):
-        mg, toks, grid = jmod.apply(p, x, method=jmod.front_encode)
-        return mg, toks, jmod.apply(p, toks, b, grid, method=jmod.post_encode)
-
-    mg, toks, feats = jax.jit(both)(jp, jnp.asarray(raw), jnp.asarray(biases))
-    with torch.no_grad():
-        pmg, ptoks, pgrid = adapter.front_encode(torch.from_numpy(raw))
-        pfeats = adapter.post_encode(ptoks, torch.from_numpy(biases), pgrid)
-    assert tuple(pgrid) == (4, 4)
-    assert _rel(ptoks, toks) <= REL_TO_MAX
-    for a, b in zip(pmg, mg):
-        assert _rel(a.permute(0, 2, 3, 1), b) <= REL_TO_MAX
-    assert pfeats.shape == (B * T, Q, D) and _rel(pfeats, feats) <= REL_TO_MAX
 
 
 @pytest.mark.parametrize("aux", [True, False], ids=["aux_logits", "last_layer_only"])
@@ -284,65 +235,8 @@ def test_san_amp_loss_within_bf16_bound_of_jax(san):
         assert abs(metrics[k] - jmetrics[k]) <= AMP_LOSS_RTOL * abs(jmetrics[k]), k
 
 
-def test_offline_san_raises_its_roadmap_item():
-    """Offline SAN builds over the video decoder and evaluates (its parity:
-    tests/test_torch_port_offline.py); its train step raises, naming the
-    JAX package's failing criterion and ROADMAP.md §3; Swin raises naming
-    item 8.6."""
-    cfg = san_cfg(Config)
-    offline = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="SAN", transformer_decoder=dataclasses.replace(
-            cfg.model.transformer_decoder, name="side_adapter_video")))
-    model = train.build_model(offline, device="cpu")
-    assert model.segmenter.video
-    with pytest.raises(NotImplementedError, match=r"criterion\.py:290.*ROADMAP\.md §3"):
-        train.build_train_step(offline, model, K, device="cpu")
-    swin = dataclasses.replace(offline.model, backbone=dataclasses.replace(
-        offline.model.backbone, name="swin"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.6"):
-        Segmenter(swin)
-
-
 SAN_YAML = CFG_YAML.replace("meta_architecture: SimpleBaselineOnline",
                             "meta_architecture: SANOnline").replace(
     "name: frame_embedding", "name: side_adapter_frame").replace(
     "name: bg_clip", "name: side\n    clip_num_heads: 4\n    merge_ids: [1, 2, 3]\n"
                      "    broken_id: 3")
-
-
-def test_cli_trains_and_evaluates_san(cli_root):  # noqa: F811
-    """One step and an eval of a SAN yaml; the tower's state is the CLIP
-    checkpoint's, converted, and it stays so."""
-    root, _ = cli_root
-    path = os.path.join(root, "san.yaml")
-    with open(path, "w") as f:
-        f.write(SAN_YAML.format(d=D, root=root, train="torch_port_cli_train",
-                                eval="torch_port_cli_eval"))
-    out = os.path.join(root, "out_san")
-    loaded = {}
-    load = train_net_torch.load_clip_visual
-
-    def recording(model, tree):
-        load(model, tree)
-        loaded.update({k: v.clone() for k, v in model.clip_adapter.visual.state_dict().items()})
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(train_net_torch, "load_clip_visual", recording)
-        run = ["--config-file", path, "--device", "cpu", f"output_dir={out}",
-               "solver.max_iter=1", "solver.checkpoint_period=1"]
-        train_net_torch.main(run)
-        train_net_torch.main(run + ["--eval-only", "--weights", os.path.join(out, "checkpoints")])
-    cfg = load_config(path)
-    want = params_from_flax(convert_clip({k: v.numpy() for k, v in torch.load(
-        cfg.model.clip_adapter.weights).items()})["visual"])
-    assert set(loaded) == set(want)
-    for k, v in want.items():
-        assert torch.equal(loaded[k], v), k
-    params = load_checkpoint(os.path.join(out, "checkpoints"))["params"]
-    for k, v in want.items():
-        assert torch.equal(params[f"clip_adapter.visual.{k}"], v), k
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        assert np.isfinite(json.loads(f.readline())["total_loss"])
-    with open(os.path.join(out, "metrics_torch_port_cli_eval.json")) as f:
-        metrics = json.load(f)
-    assert "AP" in metrics and all(np.isfinite(v) for v in metrics.values())

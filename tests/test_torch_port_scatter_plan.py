@@ -28,6 +28,9 @@ from openvis_tpu.ops.msda import ms_deform_attn_xla
 from openvis_tpu_torch.ops import msda_cuda, point_sample_cuda
 from openvis_tpu_torch.ops.msda import ms_deform_attn_bwd_plain
 from openvis_tpu_torch.ops.point_sample import sample_maps_dvalue_plain, sorted_uniform_points
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 CSRC = Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
 F32, BF16 = torch.float32, torch.bfloat16

@@ -4,6 +4,7 @@ decoder layers, Q=8, hidden 64, 4 heads), in f32 and in bf16, plus a check in a
 fresh interpreter that the port runs without JAX."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 import textwrap
@@ -19,6 +20,9 @@ import openvis_tpu.train as jax_train
 from openvis_tpu.config import Config
 from openvis_tpu_torch import train
 from openvis_tpu_torch.convert import load_flax_params
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 K, D = 5, 32
 T, H, W = 2, 64, 96
@@ -176,7 +180,9 @@ def test_port_runs_without_jax_in_fresh_interpreter():
         assert not leaked, leaked
         print("OK")
     """)
+    # one intra-op thread, as the test workers share the machine's cores
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                          timeout=120, cwd=str(REPO / "openvis_tpu_torch"))
+                          timeout=120, cwd=str(REPO / "openvis_tpu_torch"),
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 from test_torch_port_train_step import run_both
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 
 @pytest.fixture(scope="module")

@@ -53,6 +53,9 @@ from openvis_tpu_torch.parallel.train_step import (
 )
 from openvis_tpu_torch.parallel.train_step import label_params as port_label_params
 from openvis_tpu_torch.structures import ClipTargets
+from torch_port_common import one_thread_fixture
+
+one_thread = one_thread_fixture()
 
 K, D, T, H, W, HID, Q, N, POINTS = 5, 32, 2, 64, 96, 64, 8, 3, 32
 
