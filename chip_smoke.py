@@ -180,14 +180,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      stand-in init checkpoint (``_swin_init``) and ``--eval-only``;
      ``san_SwinB`` ``--eval-only`` on its checkpoint; 2 ``brivis_SwinB``
      stage-2 steps from it and ``--eval-only``
+  19. MasQCLIP as the CLI builds it from
+     ``configs/openvoc_ytvis_coco/simplebsl_R50_bs8_12000st.yaml`` with
+     ``model.meta_architecture=MasQCLIP`` and the ``video_proposal`` decoder
+     (the ViT-B/16 MasQ tower: 100 mask tokens beside 197 tokens a frame):
+     three 10x384x640 bf16 shots against K=40 text rows with their split
+     (segmenter, MasQ tower, the rest) and peak; an f32 shot at 192x320 (5
+     frames padded to 8), card against CPU; the train step at 1x2x480x864
+     (K1 6 and K5 1 a step, nothing else; the segmenter's Adam moments zero
+     while its weights decay) with K1 and K5 on its recorded inputs against
+     the plain versions; its f32 loss, pseudo-labels and gradients at
+     1x2x192x320, card against CPU, the segmenter's gradients exactly zero;
+     the engine over phase 10's dataset (single shots, the 133-frame video in
+     windows of 128); the CLI (8 clips of 2 frames, 2 steps) and
+     ``--eval-only``
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
 engine's whole-video run of phase 10, the CLI's training and eval runs of
 phase 11, the ensemble's run of phase 12, SAN's window, train step,
 engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15,
-the BURST engine and CLI runs of phase 16, the offline paths of phase 17 and
-OV2Seg's and the Swin recipes' of phase 18),
+the BURST engine and CLI runs of phase 16, the offline paths of phase 17,
+OV2Seg's and the Swin recipes' of phase 18 and MasQCLIP's of phase 19),
 its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
@@ -198,6 +212,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import copy
 import dataclasses
@@ -237,6 +252,7 @@ from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
 from openvis_tpu_torch.models.clip import synthetic as clip_synthetic
 from openvis_tpu_torch.models.clip.model import model_shape
 from openvis_tpu_torch.models.meta import brivis as brivis_meta
+from openvis_tpu_torch.models.meta import masqclip as masqclip_meta
 from openvis_tpu_torch.models.meta import ov2seg as ov2seg_meta
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule
 from openvis_tpu_torch.models.postprocess import inference_video_topk
@@ -252,6 +268,7 @@ from openvis_tpu_torch.ops.point_sample import (
 )
 from openvis_tpu_torch.parallel.train_step import config_labels, global_norm, stop_frozen_gradients
 from openvis_tpu_torch.structures import ClipTargets
+from openvis_tpu_torch.utils.image import resize_bilinear_torch_hw
 
 SEED = 0
 DEVICE = "cuda"
@@ -498,6 +515,15 @@ SWIN_OVERRIDES = ("model.weights=",)
 SWIN_WINDOW_H, SWIN_WINDOW_W = 480, 864   # min_size_test 480 on the 480x864 canvas
 # the CLI as the reference trains it a card: 16 clips over 8 GPUs, 2 a card
 SWIN_CLI_CLIPS, SWIN_CLI_STEPS = 2, 2
+# phase 19: MasQCLIP as the CLI builds it from the offline SimpleBaseline
+# recipe, over the video proposal decoder (JAX tests/test_engine.py:249)
+MASQ_OVERRIDES = ("model.meta_architecture=MasQCLIP",
+                  "model.transformer_decoder.name=video_proposal")
+MASQ_CLI_STEPS = 2
+MASQ_CHECK_GRADS = ("clip_adapter.mask_embeddings", "clip_adapter.proj",
+                    "clip_adapter.resblock0.attn.new_q_proj.weight",
+                    "clip_adapter.resblock11.attn.new_q_proj.weight",
+                    "clip_adapter.resblock5.mlp_c_fc.weight", "clip_adapter.ln_post.ln.weight")
 # the f32 card-against-CPU checks: the SAN R50 recipe's ViT-B/16 split (phase
 # 11's CLIP files) over the Swin-B trunk cut to 2 blocks a stage, drop path 0
 SWIN_CHECK_OVERRIDES = ("model.backbone.name=swin", "model.backbone.swin_embed_dim=128",
@@ -1373,7 +1399,8 @@ def _train_launches(cfg, h, w, steps, t=TRAIN_T):
     encoder has no backward (no K2/K3); K4 tracks and matches (twice a
     step); one matching, on one layer, and the two loss samplings of each of
     the image layer and the resampler's L+1 layers; K6 for the resampler's
-    layers only (the image layer is frozen)."""
+    layers only (the image layer is frozen).  MasQCLIP: K1 in the forward,
+    K5 in ``label_assign``, nothing else."""
     enc = cfg.model.pixel_decoder.transformer_enc_layers
     if cfg.model.meta_architecture == "BriVIS":
         layers = cfg.model.resampler.num_layers + 1
@@ -1382,6 +1409,11 @@ def _train_launches(cfg, h, w, steps, t=TRAIN_T):
                     "point_sample_fwd": (1 + 2 * (layers + 1)) * targets,
                     "point_sample_dvalue": 2 * layers}
         return {k: v * steps for k, v in per_step.items()}
+    if cfg.model.meta_architecture == "MasQCLIP":
+        # the segmenter's forward without a graph; label_assign samples the
+        # predicted masks once, and the targets too where they fit K5
+        return {**{k: 0 for k in read_counts()}, "msda_fwd": enc * steps,
+                "point_sample_fwd": (1 + int(h * w <= KERNEL_MAX_HW)) * steps}
     layers = cfg.model.transformer_decoder.dec_layers + 1
     target_samplings = 3 if h * w <= KERNEL_MAX_HW else 0
     per_step = {"msda_fwd": enc, "msda_dcoord": enc, "msda_dvalue": enc, "hungarian": 1,
@@ -1694,16 +1726,28 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+_PLAIN_POOL = None
+
+
+def _plain_pool() -> ProcessPoolExecutor:
+    """The pool of spawned processes, one a core, that every K4 plain check
+    shares: a process takes ~8 s to start (it imports torch and the port), and
+    the script makes a dozen such checks.  ``main`` shuts it down."""
+    global _PLAIN_POOL
+    if _PLAIN_POOL is None:
+        _PLAIN_POOL = ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                                          mp_context=multiprocessing.get_context("spawn"),
+                                          initializer=_one_thread)
+    return _PLAIN_POOL
+
+
 def _plain_assignments(costs):
     """``hungarian_plain`` of every problem of ``costs`` (a list of (B, N, M)),
     with its Dijkstra steps: one problem is a long chain of small torch
-    operations, so the problems go to a pool of processes, one a core."""
+    operations, so the problems go to the pool of processes."""
     problems = [c for cost in costs for c in cost]
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1), mp_context=ctx,
-                             initializer=_one_thread) as pool:
-        return list(pool.map(functools.partial(hungarian_plain, return_steps=True), problems,
-                             chunksize=4))
+    return list(_plain_pool().map(functools.partial(hungarian_plain, return_steps=True),
+                                  problems, chunksize=4))
 
 
 def _engine_config(root, **test):
@@ -1783,16 +1827,30 @@ def _engine_expected(cfg, launches, videos=None):
             "hungarian": sum(tracked(t) for _, _, t, _ in videos)}
 
 
+_ENGINE_DATA = None  # (directory, info, categories, seconds): written once a run
+
+
 def _write_engine_dataset(root):
-    """Phase 10's synthetic dataset (the YTVIS-2019 categories), registered
-    as ENGINE_DATASET; returns its categories and the seconds it took."""
-    ytvis19 = catalog.get("ytvis_2019_val")
-    cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
-    t0 = time.perf_counter()
-    catalog.register(dataclasses.replace(
-        synthetic.write_ytvis_dataset(root, "synth", ENGINE_VIDEOS, cats, seed=SEED),
-        name=ENGINE_DATASET))
-    return cats, time.perf_counter() - t0
+    """Phase 10's synthetic dataset (the YTVIS-2019 categories) under
+    ``root``, registered as ENGINE_DATASET; returns its categories and the
+    seconds its write took.  It is written once a run (a dozen phases read
+    it, 2-5 s a write) into a directory removed at exit, and linked into
+    each ``root``: the engine reads the same files."""
+    global _ENGINE_DATA
+    if _ENGINE_DATA is None:
+        ytvis19 = catalog.get("ytvis_2019_val")
+        cats = [{"id": cid, "name": ytvis19.thing_classes[i]}
+                for cid, i in ytvis19.id_map.items()]
+        src = tempfile.mkdtemp(prefix="chip_smoke_engine_data_")
+        atexit.register(shutil.rmtree, src, True)
+        t0 = time.perf_counter()
+        info = synthetic.write_ytvis_dataset(src, "synth", ENGINE_VIDEOS, cats, seed=SEED)
+        _ENGINE_DATA = (src, info, cats, time.perf_counter() - t0)
+    src, info, cats, seconds = _ENGINE_DATA
+    for name in os.listdir(src):
+        os.symlink(os.path.join(src, name), os.path.join(root, name))
+    catalog.register(dataclasses.replace(info, name=ENGINE_DATASET))
+    return cats, seconds
 
 
 def phase_engine(card: str):
@@ -2393,18 +2451,7 @@ def _hold_k4_k5_k6(path: str, k4_rec: HungarianRecorder, sampler_rec: SamplerInp
           "steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)}})
     if differ or len(k4_rec.costs) != k4_calls:
         raise AssertionError(f"K4 on the {path} costs differs from hungarian_plain: {differ}")
-    for shape, (maps, coords) in sorted(sampler_rec.fwd.items()):
-        maps, coords = maps.to(DEVICE), coords.to(DEVICE)
-        got = point_sample_cuda.point_sample_fwd_cuda(maps, coords)
-        ref = sample_maps_shared_plain(maps, coords, f32_policy=True)
-        torch.cuda.synchronize()
-        ok, err, rel = _check_close(got, ref, SAMPLER_REL_TO_MAX, SAMPLER_RTOL)
-        emit({"phase": "k5_recorded_inputs", "path": path, "maps_points": shape,
-              "dtype": str(maps.dtype).replace("torch.", ""), "within_tol": ok,
-              "max_abs_err": err, "max_err_rel_to_max": rel,
-              "tol": {"rel_to_max": SAMPLER_REL_TO_MAX, "rtol": SAMPLER_RTOL}})
-        if not ok:
-            raise AssertionError(f"K5 disagrees with the plain sampler on the {path} {shape}")
+    _hold_k5(path, sampler_rec)
     for shape, (coords, grad, map_shape, dtype) in sorted(sampler_rec.dvalue.items()):
         coords, grad = coords.to(DEVICE), grad.to(DEVICE)
         got = point_sample_cuda.point_sample_dvalue_cuda(coords, grad, map_shape, dtype)
@@ -2420,6 +2467,34 @@ def _hold_k4_k5_k6(path: str, k4_rec: HungarianRecorder, sampler_rec: SamplerInp
             raise AssertionError(f"K6 disagrees with the plain sampler on the {path} {shape}")
     if not sampler_rec.fwd or not sampler_rec.dvalue:
         raise AssertionError(f"the {path} step launched no K5 or no K6")
+
+
+def _hold_k5(path: str, sampler_rec: SamplerInputs):
+    """K5 on its first call of each shape recorded on ``path`` against the
+    plain sampler with phase 5's tolerance, timed beside its bound and the
+    plain version; returns the times by shape."""
+    times = {}
+    for shape, (maps, coords) in sorted(sampler_rec.fwd.items()):
+        maps, coords = maps.to(DEVICE), coords.to(DEVICE)
+        got = point_sample_cuda.point_sample_fwd_cuda(maps, coords)
+        ref = sample_maps_shared_plain(maps, coords, f32_policy=True)
+        torch.cuda.synchronize()
+        ok, err, rel = _check_close(got, ref, SAMPLER_REL_TO_MAX, SAMPLER_RTOL)
+        h, w = maps.shape[-2:]
+        x, y = coords[..., 0] * w - 0.5, coords[..., 1] * h - 0.5
+        inside = int(((x > -1) & (y > -1) & (x < w) & (y < h)).sum()) * maps.shape[1]
+        b_ms, b_by = bound(nbytes(maps, coords, got), 12.0 * inside)
+        ms = time_cuda(lambda: point_sample_cuda.point_sample_fwd_cuda(maps, coords))
+        plain_ms = time_cuda(lambda: sample_maps_shared_plain(maps, coords, True), iters=5)
+        times[shape] = ms
+        emit({"phase": "k5_recorded_inputs", "path": path, "maps_points": shape,
+              "dtype": str(maps.dtype).replace("torch.", ""), "within_tol": ok,
+              "max_abs_err": err, "max_err_rel_to_max": rel, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by,
+              "tol": {"rel_to_max": SAMPLER_REL_TO_MAX, "rtol": SAMPLER_RTOL}})
+        if not ok:
+            raise AssertionError(f"K5 disagrees with the plain sampler on the {path} {shape}")
+    return times
 
 
 def _metrics(step, batch):
@@ -4728,7 +4803,287 @@ def phase_swin(card, clip, clip_dir):
     return launches
 
 
+def _masq_config(clip, *overrides):
+    """MasQCLIP as the CLI builds it: the offline SimpleBaseline recipe with
+    ``MASQ_OVERRIDES``, the CLIP files ``clip`` (weights, bpe) and ``overrides``."""
+    return _offline_config(OFFLINE_CONFIG, clip, *MASQ_OVERRIDES, *overrides)
+
+
+def phase_masq_shot(card, cfg):
+    """19.1: MasQCLIP at full width (R50, the 6-layer MSDA pixel decoder, 100
+    queries over 9+1 layers, the ViT-B/16 MasQ tower: 100 mask tokens beside
+    197 tokens a frame), random weights from the seed, bf16: three 10x384x640
+    shots through ``train.make_eval_fn`` against K=40 text rows, with their
+    split (segmenter, MasQ tower, the rest: the resizes, the scores and the
+    top-k) and peak; the last row is never a label.  Returns the launches."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
+        dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    clips = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    outs, ms, peak, launches = _timed_shots(model, cfg, clips, text)
+    with StageSpans({"segmenter": (model.segmenter, "forward"),
+                     "masq_tower": (model.clip_adapter, "forward")}) as spans:
+        timed = spans.window(train.make_eval_fn(cfg, model))
+        for x in clips:
+            timed(x, text)
+    split = spans.split_ms("resizes_scores_topk", NUM_WINDOWS)
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES - 1, t, h, w, f"MasQCLIP shot {i}")
+    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS}
+    emit({"phase": "masqclip_shot_full_width", "config": OFFLINE_CONFIG,
+          "overrides": MASQ_OVERRIDES, "clip": cfg.model.clip_adapter.clip_model_name,
+          "dtype": "bfloat16", "shots": NUM_WINDOWS, "frames_per_shot": t, "frame_hw": [h, w],
+          "text_rows": K_CLASSES, "ms_per_shot": ms, "frames_per_s": t / (ms / 1e3),
+          "split_ms_per_shot": split, "peak_mem_gib": peak, "launches": launches,
+          "expected_launches": expected, "card": card})
+    if launches != expected:
+        raise AssertionError(f"MasQCLIP shot launches {launches} != {expected}")
+    del outs, clips, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_masq_vs_plain(cfg):
+    """19.2: the same model in f32 at 192x320 on T=5 frames padded to 8 (the
+    engine's single shot), card (kernels) against CPU (plain), phase 7's
+    bounds."""
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, test=dataclasses.replace(cfg.model.test, amp=False)))
+    cpu_model = init_params(train.build_model(f32, device="cpu"), seed=SEED + 1)
+    _hold_window_to_plain("masqclip_kernels_vs_plain", f32, cpu_model, CHECK_TRAIN_H,
+                          CHECK_TRAIN_W, make_eval=_single_shot_eval(f32),
+                          frames=OFFLINE_CHECK_T, kernels=("msda_fwd",))
+
+
+class AssignRecorder:
+    """Wraps ``masqclip.label_assign`` for one run of a path and keeps host
+    copies of its outputs (labels, valid, target index), one list a call."""
+
+    def __enter__(self):
+        self.calls = []
+        self._assign = masqclip_meta.label_assign
+
+        def recording(*args, **kwargs):
+            out = self._assign(*args, **kwargs)
+            self.calls.append([t.cpu() for t in out])
+            return out
+
+        masqclip_meta.label_assign = recording
+        return self
+
+    def __exit__(self, *exc):
+        masqclip_meta.label_assign = self._assign
+
+
+def _own_proposal_targets(model, batch, n):
+    """``batch`` with its target masks replaced by the model's own first ``n``
+    proposals thresholded at the input resolution, so that queries take
+    pseudo-labels (random masks leave every query background, and then the
+    loss can be ~0 with random weights)."""
+    pixels = batch["pixels"]
+    b, t, h, w, _ = pixels.shape
+    with torch.no_grad():
+        own = model.segmenter(pixels.reshape(b * t, h, w, 3), t)
+    masks = resize_bilinear_torch_hw(own["pred_masks"][:, :n].float(), (h, w)) > 0
+    tg = batch["targets"]
+    return {**batch, "targets": ClipTargets(tg.labels, masks, tg.valid, tg.frame_valid)}
+
+
+def phase_masq_train(card, cfg):
+    """19.3: MasQCLIP's train step at full width (1x2x480x864, N=40, 12544
+    points, bf16 AMP, f32 masters, AdamW): one warm-up and three timed steps,
+    the launches (K1 6 a step in the segmenter's forward, K5 once a step in
+    ``label_assign`` at (1, Q*T, 120, 216); the targets, 414,720 pixels, take
+    the plain gather), the segmenter's Adam moments zero after all four steps
+    (its gradients are exact zeros) while its weights decay, the tower's
+    ``new_q_proj`` and mask token moved; the targets the model's first 40
+    proposals (``_own_proposal_targets``); K1 and K5 on the warm-up step's
+    recorded inputs against their plain versions.  Returns (the launches, K1's
+    and K5's times on the recorded inputs)."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+    tower = model.clip_adapter
+    trained = {"new_q_proj": tower.resblock0.attn.new_q_proj.weight,
+               "mask_embeddings": tower.mask_embeddings}
+    decaying = model.segmenter.predictor.heads.class_embed.weight
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    decay_before = decaying.detach().clone()
+    batch = _own_proposal_targets(model, _train_batch(np.random.RandomState(SEED), TRAIN_H,
+                                                      TRAIN_W, TRAIN_N, DEVICE), TRAIN_N)
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with MsdaRecorder() as msda_rec, SamplerInputs() as s_rec, AssignRecorder() as assigned:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator; its inputs recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with SamplerShapes() as shapes:
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    q = cfg.model.transformer_decoder.num_queries
+    k5_shape = (1, q * TRAIN_T, TRAIN_H // 4, TRAIN_W // 4,
+                cfg.model.criterion.train_num_points)
+    k5_by_shape = {str(k): v for k, v in shapes.counts.items()}
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    opt = step.state.opt
+    seg = [n for n in opt.hyper if n.startswith("segmenter.")]
+    seg_mu_zero = all(not opt.mu[n].any() for n in seg)
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in trained.items()}
+    decayed = not torch.equal(decaying.detach(), decay_before)
+    emit({"phase": "masqclip_train_full_width", "config": OFFLINE_CONFIG,
+          "overrides": MASQ_OVERRIDES, "dtype": "bf16 AMP, f32 masters",
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "k5_launches_by_shape": k5_by_shape,
+          "queries_assigned_warm_up": int(assigned.calls[0][1].sum()),
+          "segmenter_params": len(seg),
+          "segmenter_adam_moments_zero": seg_mu_zero, "segmenter_class_head_decayed": decayed,
+          "tower_moved": moved, "card": card})
+    if launches != expected or k5_by_shape != {str(k5_shape): TRAIN_STEPS}:
+        raise AssertionError(f"MasQCLIP train launches {launches} != {expected} or K5's shapes "
+                             f"{k5_by_shape} are not {k5_shape}")
+    if not (all(np.isfinite(v) for m in values for v in m.values())
+            and all(m["total_loss"] > 0 for m in values)):
+        raise AssertionError("a MasQCLIP train-step loss is zero or not finite")
+    if not (seg_mu_zero and decayed and all(moved.values())):
+        raise AssertionError(f"MasQCLIP: the segmenter got a gradient ({not seg_mu_zero}) or "
+                             f"did not decay ({decayed}), or the tower did not move: {moved}")
+    k1_ms = _hold_k1("masqclip_train", msda_rec)
+    k5_ms = _hold_k5("masqclip_train", s_rec)
+    if list(k5_ms) != [k5_shape]:
+        raise AssertionError(f"MasQCLIP's recorded K5 calls {list(k5_ms)} are not {k5_shape}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches, k1_ms, k5_ms[k5_shape]
+
+
+def _masq_loss_and_grads(cfg, model, batch):
+    """Loss, metrics, ``label_assign``'s outputs and the gradients (None where
+    the loss does not reach) of one f32 MasQCLIP train-step forward and
+    backward, the points from a CPU generator."""
+    stop_frozen_gradients(model, config_labels(cfg, model))
+    loss_fn = train.make_loss_fn(cfg, model, K_CLASSES)
+    params = dict(model.named_parameters())
+    names = [n for n, p in params.items() if p.requires_grad]
+    with AssignRecorder() as assigned:
+        loss, metrics = loss_fn(params, batch, torch.Generator().manual_seed(SEED))
+    grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    return (loss.item(), {k: v.item() for k, v in metrics.items()}, assigned.calls[0],
+            dict(zip(names, grads)))
+
+
+def phase_masq_train_vs_plain(cfg):
+    """19.4: one f32 MasQCLIP train-step loss and gradient at 1x2x192x320,
+    card (kernels) against CPU (plain), from the same weights and points, the
+    N=8 targets the model's own first proposals at the input resolution (so
+    that queries take pseudo-labels): the losses, the pseudo-labels (equal),
+    the gradient norm and the tower's gradients within phase 9's bounds, the
+    segmenter's gradients exactly zero on both sides."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.mkldnn.enabled = False  # see _hold_train_to_plain
+    f32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = _offsets_off_centres(
+        init_params(train.build_model(f32, device="cpu"), seed=SEED + 2), SEED + 2)
+    gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
+    h, w, n = CHECK_TRAIN_H, CHECK_TRAIN_W, CHECK_TRAIN_N
+    batch = _own_proposal_targets(
+        cpu_model, _train_batch(np.random.RandomState(SEED + 2), h, w, n, "cpu"), n)
+    gpu_batch = _to_device(batch, DEVICE)
+    t0 = time.perf_counter()
+    ref_loss, ref_m, ref_lab, ref_g = _masq_loss_and_grads(f32, cpu_model, batch)
+    cpu_s = time.perf_counter() - t0
+    reset_counts()
+    got_loss, got_m, got_lab, got_g = _masq_loss_and_grads(f32, gpu_model, gpu_batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    torch.backends.mkldnn.enabled = True
+    seg_zero = all((g is None or not g.any()) for name, g in [*ref_g.items(), *got_g.items()]
+                   if name.startswith("segmenter."))
+    rest = [k for k in ref_g if not k.startswith("segmenter.") and ref_g[k] is not None]
+    ref_norm = global_norm(ref_g[k] for k in rest).item()
+    got_norm = global_norm(got_g[k].cpu() for k in rest).item()
+    losses = {"total": (got_loss, ref_loss), **{k: (got_m[k], ref_m[k]) for k in ref_m}}
+    loss_rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, (a, b) in losses.items()}
+    grad_rel = {k: ((got_g[k].cpu() - ref_g[k]).abs().max() / ref_g[k].abs().max()).item()
+                for k in MASQ_CHECK_GRADS}
+    labels_equal = all(torch.equal(a, b) for a, b in zip(got_lab, ref_lab))
+    expected = _train_launches(f32, h, w, 1)
+    emit({"phase": "masqclip_train_kernels_vs_plain", "dtype": "float32", "tf32": False,
+          "batch": [1, TRAIN_T, h, w], "targets": n, "losses_kernel_plain": losses,
+          "loss_rel_err": loss_rel, "pseudo_labels_equal": labels_equal,
+          "queries_assigned": int(ref_lab[1].sum()), "segmenter_grads_zero": seg_zero,
+          "grad_norm_kernel_plain": [got_norm, ref_norm],
+          "grad_norm_rel_err": abs(got_norm - ref_norm) / ref_norm,
+          "grad_max_err_rel_to_max": grad_rel, "kernel_launches": launches,
+          "expected_launches": expected, "cpu_seconds": cpu_s,
+          "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
+                  "grad_rel_to_max": TRAIN_GRAD_REL_TO_MAX}})
+    if not (all(v <= TRAIN_LOSS_RTOL for v in loss_rel.values()) and labels_equal and seg_zero
+            and abs(got_norm - ref_norm) <= TRAIN_GRAD_NORM_RTOL * ref_norm
+            and all(v <= TRAIN_GRAD_REL_TO_MAX for v in grad_rel.values())):
+        raise AssertionError("the kernel MasQCLIP step disagrees with the plain step")
+    if launches != expected:
+        raise AssertionError(f"the card's MasQCLIP step launched {launches}, not {expected}")
+
+
+def phase_masq_engine(card, clip):
+    """19.5: the engine with the recipe's eval settings (bf16 AMP,
+    ``test.max_frames`` 128, no window inference) over phase 10's dataset:
+    single shots of 40 and 24 frames, the 133-frame video in two windows of
+    128; K1 only.  Returns the launches."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_masqclip_engine_")
+    try:
+        _write_engine_dataset(root)
+        cfg = _engine_root_config(OFFLINE_CONFIG, clip, root, *MASQ_OVERRIDES)
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        launches = phase_offline_engine(card, cfg, "masqclip_engine", model,
+                                        _text(np.random.RandomState(SEED)))
+        del model
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_masqclip(card, clip):
+    """Phase 19: MasQCLIP; returns its paths' launch counts by name and the
+    kernels line's times of K1 and K5 on its step's recorded inputs."""
+    t0 = time.perf_counter()
+    cfg = _masq_config(clip)
+    launches = {"masqclip_eval": phase_masq_shot(card, cfg)}
+    phase_masq_vs_plain(cfg)
+    launches["masqclip_train"], k1_ms, k5_ms = phase_masq_train(card, cfg)
+    phase_masq_train_vs_plain(cfg)
+    launches["masqclip_engine"] = phase_masq_engine(card, clip)
+    launches["masqclip_cli_train"], launches["masqclip_cli_eval"] = _recipe_cli(
+        card, clip, OFFLINE_CONFIG, MASQ_CLI_STEPS, "masqclip", overrides=MASQ_OVERRIDES)
+    emit({"phase": "masqclip_done", "seconds": time.perf_counter() - t0})
+    return launches, {"msda_fwd": {"recorded_masqclip_train_ms": k1_ms},
+                      "point_sample_fwd": {"recorded_masqclip_train_ms": k5_ms}}
+
+
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        if _PLAIN_POOL is not None:
+            _PLAIN_POOL.shutdown()
+
+
+def _main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     card = card_line()
@@ -4763,9 +5118,10 @@ def main() -> int:
         offline_launches = phase_offline(card, clip, stage1)
         ov2seg_launches = phase_ov2seg(card, clip)
         swin_launches = phase_swin(card, clip, clip_dir)
+        masq_launches, masq_recorded = phase_masqclip(card, clip)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
-    for name, extra in cli_recorded.items():
+    for name, extra in (*cli_recorded.items(), *masq_recorded.items()):
         fields[name].update(extra)
     leaked = [m for m in ("jax", "openvis_tpu") if m in sys.modules]
     if leaked:
@@ -4791,7 +5147,8 @@ def main() -> int:
                               **{path: n[name] for path, n in burst_launches.items()},
                               **{path: n[name] for path, n in offline_launches.items()},
                               **{path: n[name] for path, n in ov2seg_launches.items()},
-                              **{path: n[name] for path, n in swin_launches.items()}},
+                              **{path: n[name] for path, n in swin_launches.items()},
+                              **{path: n[name] for path, n in masq_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -13,7 +13,8 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
   * everything else as it is: ``bias``, the ``FrozenAffine`` ``scale``/``bias``
     of the ResNet, ``level_embed``, ``query_feat``, ``query_embed``,
     ``non_object_embedding``, CLIP's ``proj``, ``text_projection``,
-    ``class_embedding``, ``positional_embedding`` and ``logit_scale``, and
+    ``class_embedding``, ``positional_embedding`` and ``logit_scale``,
+    MasQCLIP's ``mask_embeddings``, and
     SAN's ``bg_embed`` (its 1x1 ``attn_proj``/``attn_mlp`` kernels are Conv
     kernels, its ``attn_embed`` Dense layers), and Swin's
     ``relative_position_bias_table`` and NHWC ``absolute_pos_embed``.
@@ -148,7 +149,7 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
     (BriVIS's ``query_emb``/``query_pos`` too), N(0, hidden^-1/2) no-object embedding, the
     MSDeformAttn ring bias with zero sampling-offset and attention-weight
     kernels, CLIP's embeddings and projections (N(0, 0.02) class, N(0, 0.01)
-    positional, N(0, width^-1/2) projections), SAN's N(0, dim^-1/2)
+    positional and MasQCLIP's mask token, N(0, width^-1/2) projections), SAN's N(0, dim^-1/2)
     background row and log(1/0.07) logit scale.  Draws on the CPU, so a seed
     gives the same weights everywhere."""
     g = torch.Generator().manual_seed(seed)
@@ -169,7 +170,7 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             elif name == "non_object_embedding":
                 hidden = mod.segmenter.predictor.hidden_dim
                 p.copy_(torch.randn(p.shape, generator=g) * hidden ** -0.5)
-            elif name in ("class_embedding", "positional_embedding"):
+            elif name in ("class_embedding", "positional_embedding", "mask_embeddings"):
                 std = 0.02 if name == "class_embedding" else 0.01
                 p.copy_(torch.randn(p.shape, generator=g) * std)
             elif name in ("proj", "text_projection"):    # (width, embed_dim)

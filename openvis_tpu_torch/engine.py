@@ -63,8 +63,8 @@ videos p, p + P, ... (``max_videos`` counted globally); rank 0 gathers the
 predictions (``torch.distributed``, no shared file system) and scores them;
 the other processes return ``{}``.
 
-The offline (video-decoder) archs, SimpleBaseline, OpenVIS, SAN and
-VideoMaskFormer, evaluate single-shot (JAX ``_evaluate_single_shot``,
+The offline (video-decoder) archs, SimpleBaseline, OpenVIS, SAN,
+VideoMaskFormer and MasQCLIP, evaluate single-shot (JAX ``_evaluate_single_shot``,
 ``engine.py:216-295``, ``:836-939``): a video of ``_bucket(t) <=
 test.max_frames`` frames runs as one forward of ``_bucket(t)`` frames, padded
 with its last frame repeated as the JAX engine pads it (the video decoder's
@@ -90,7 +90,11 @@ on the aligned logits, whose frame mean runs over all ``_bucket(T)`` frames
 the reference averages the real frames), reduced to the top-k and gated per
 frame; the masks go to the evaluator cut to the T real frames.
 
-MasQCLIP raises ``NotImplementedError`` naming its ROADMAP.md item.
+MasQCLIP evaluates single-shot (JAX ``engine.py:243-246``, ``:280-287``,
+``:921-923``): a shot's scores are ``masqclip_eval_scores`` (the objectness
+and the MasQ tower's CLIP logits fused, both averaged over all the shot's
+frames, the padded ones too, as in JAX); a window's are those scores times
+its real frames, summed over the windows and divided by T with no softmax.
 """
 
 from __future__ import annotations
@@ -111,27 +115,20 @@ from openvis_tpu_torch.data.mapper import load_burst_records
 from openvis_tpu_torch.evals.burst_eval import BURSTEvaluator
 from openvis_tpu_torch.evals.ytvis_eval import YTVISEvaluator
 from openvis_tpu_torch.models.clip_adapter import frame_average_scores
+from openvis_tpu_torch.models.meta.masqclip import MasQCLIPModel, masqclip_eval_scores
 from openvis_tpu_torch.models.meta.ov2seg import ov2seg_eval_scores, ov2seg_frame_gate
 from openvis_tpu_torch.models.meta.simple_baseline import eval_scores
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
 from openvis_tpu_torch.parallel import dist
-from openvis_tpu_torch.train import ITEM_OF_ARCH, eval_model, resolve_device
+from openvis_tpu_torch.train import check_arch, eval_model, resolve_device
 
 logger = logging.getLogger(__name__)
 
-_PORTED_ARCHS = ("SimpleBaseline", "SimpleBaselineOnline", "OpenVIS", "OpenVISOnline",
-                 "SAN", "SANOnline", "BriVIS", "VideoMaskFormer", "MinVIS", "OV2Seg",
-                 "OV2SegOnline")
 OV2SEG_EMA_ALPHA = 0.7  # OV2Seg's tracker (JAX engine.py:145)
 # the offline (clip-level) archs: the JAX engine's list less BriVIS, which it
-# dispatches first (its own whole-video path here too), and MasQCLIP (queue 1
-# item 8.7)
-_OFFLINE_ARCHS = ("VideoMaskFormer", "SimpleBaseline", "OpenVIS", "SAN")
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item {item})")
+# dispatches first (its own whole-video path here too)
+_OFFLINE_ARCHS = ("VideoMaskFormer", "SimpleBaseline", "OpenVIS", "SAN", "MasQCLIP")
 
 
 def verify_expected_results(expected, dataset_name: str, metrics: Dict) -> bool:
@@ -403,10 +400,13 @@ def _frame_mean(logits: torch.Tensor, frame_valid: torch.Tensor) -> torch.Tensor
 
 
 def _shot(model: nn.Module, params, frames: torch.Tensor, text_feats: torch.Tensor):
-    """One clip's forward: (masks (Q, T, h, w), logits (Q, C) or (T, Q, C))."""
+    """One clip's forward: (masks (Q, T, h, w), logits (Q, C) or (T, Q, C));
+    MasQCLIP's "logits" are its fused probabilities (Q, K-1)."""
     out = torch.func.functional_call(model, params, (frames, frames.shape[0], text_feats))
+    scores = (masqclip_eval_scores(out) if isinstance(model, MasQCLIPModel)
+              else out["pred_logits"])[0]
     # a copy: the slice would hold every layer's masks alive
-    return out["pred_masks"][0].clone(), out["pred_logits"][0]
+    return out["pred_masks"][0].clone(), scores
 
 
 def make_single_shot_fn(cfg: Config, model: nn.Module, pre_topk: bool = False) -> Callable:
@@ -419,12 +419,16 @@ def make_single_shot_fn(cfg: Config, model: nn.Module, pre_topk: bool = False) -
     crops before the top-k."""
     topk = cfg.model.test.topk_per_video
     model = eval_model(model)
+    masq = cfg.model.meta_architecture == "MasQCLIP"
 
     def fn(params, frames, text_feats, frame_valid):
         masks, logits = _shot(model, params, frames, text_feats)
-        if logits.dim() == 3:                                      # (T, Q, C): frame head
-            logits = _frame_mean(logits, frame_valid) / frame_valid.sum().clamp(min=1)
-        probs = torch.softmax(logits.float(), dim=-1)[..., :-1]
+        if masq:                                                   # already fused (Q, K-1)
+            probs = logits
+        else:
+            if logits.dim() == 3:                                  # (T, Q, C): frame head
+                logits = _frame_mean(logits, frame_valid) / frame_valid.sum().clamp(min=1)
+            probs = torch.softmax(logits.float(), dim=-1)[..., :-1]
         if pre_topk:
             return probs, masks
         return inference_video_topk(probs, masks, topk)
@@ -438,7 +442,8 @@ def make_single_shot_window_fn(cfg: Config, model: nn.Module) -> Callable:
     longer than ``test.max_frames`` (JAX ``engine.py:265-298``, the
     reference's ``run_window_inference``): a clip-level head's logits times
     the window's valid frames, a frame-level head's logits summed over them;
-    the caller sums the windows and divides by T."""
+    the caller sums the windows and divides by T.  MasQCLIP's: its fused
+    probabilities (Q, K-1) times the window's valid frames."""
     model = eval_model(model)
 
     def fn(params, frames, text_feats, frame_valid):
@@ -509,19 +514,14 @@ def _evaluate_single_shot(cfg: Config, model: nn.Module, params: Dict[str, torch
                 acc = acc + lg
                 parts.append(mk[:, :keep])
             masks = _pad_frames(torch.cat(parts, dim=1), tb, dim=1)  # (Q, Tb, h, w)
-            probs = torch.softmax(acc / t, dim=-1)[..., :-1]
+            # MasQCLIP's windows sum fused probabilities: no softmax
+            probs = acc / t if arch == "MasQCLIP" else torch.softmax(acc / t, dim=-1)[..., :-1]
             topk_out = (ensembled_topk(probs, masks, pixels, t) if ensemble
                         else inference_video_topk(probs, masks, topk))
         del frames
         topk_out["mask_logits"] = topk_out["mask_logits"][:, :t]
         _process(evaluator, rec, sample, topk_out, counts)
     return counts
-
-
-def _check_ported(cfg: Config) -> None:
-    arch = cfg.model.meta_architecture
-    if arch not in _PORTED_ARCHS:
-        raise _not_ported(f"the evaluation of {arch!r}", ITEM_OF_ARCH.get(arch, 8))
 
 
 def evaluate_dataset(
@@ -544,8 +544,8 @@ def evaluate_dataset(
     (offline OpenVIS on its objectness, without the tower).  Under a
     process group every process calls it; rank 0 returns the metrics of all
     the processes' videos, the others ``{}``."""
-    _check_ported(cfg)
     arch = cfg.model.meta_architecture
+    check_arch(arch)
     device = resolve_device(device)
     evaluator = make_evaluator(catalog.get(dataset_name))
     dtype = eval_dtype(cfg)

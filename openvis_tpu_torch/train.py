@@ -1,7 +1,7 @@
 """Model assembly, the train step and the windowed video eval entry point.
 
 Port of ``openvis_tpu/train.py`` for SimpleBaseline(Online), OpenVIS(Online),
-SAN(Online), BriVIS, VideoMaskFormer, MinVIS and OV2Seg(Online):
+SAN(Online), BriVIS, VideoMaskFormer, MinVIS, MasQCLIP and OV2Seg(Online):
 ``build_model`` (``:25``), the loss closure ``make_loss_fn`` with its AMP
 rule (``:70-174``), the train step of
 ``openvis_tpu/parallel/train_step.py`` (``build_train_step``, one process or
@@ -33,6 +33,11 @@ from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import flax_path
 from openvis_tpu_torch.models.backbone.swin import dropout_generator
 from openvis_tpu_torch.models.meta.brivis import BriVISModel, brivis_loss
+from openvis_tpu_torch.models.meta.masqclip import (
+    MasQCLIPModel,
+    masqclip_eval_scores,
+    masqclip_loss,
+)
 from openvis_tpu_torch.models.meta.openvis import OpenVISModel, openvis_loss
 from openvis_tpu_torch.models.meta.ov2seg import OV2SegModel, ov2seg_loss
 from openvis_tpu_torch.models.meta.san import SANModel, offline_san_loss_error, san_loss
@@ -71,7 +76,7 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-# the ported architectures: their module and their loss (JAX ``train.py:25-60``, ``:70-113``)
+# the architectures: their module and their loss (JAX ``train.py:25-60``, ``:70-113``)
 _ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
           "SimpleBaselineOnline": (SimpleBaselineModel, simple_baseline_loss),
           "OpenVIS": (OpenVISModel, openvis_loss),
@@ -81,22 +86,30 @@ _ARCHS = {"SimpleBaseline": (SimpleBaselineModel, simple_baseline_loss),
           "BriVIS": (BriVISModel, brivis_loss),
           "VideoMaskFormer": (VideoMaskFormerModel, video_maskformer_loss),
           "MinVIS": (VideoMaskFormerModel, video_maskformer_loss),
+          "MasQCLIP": (MasQCLIPModel, masqclip_loss),
           "OV2Seg": (OV2SegModel, ov2seg_loss),
           "OV2SegOnline": (OV2SegModel, ov2seg_loss)}
-# the ROADMAP.md queue 1 item that ports each other architecture: MasQCLIP (8.7)
-ITEM_OF_ARCH = {"MasQCLIP": "8.7"}
+
+
+def check_arch(name: str) -> None:
+    """Raise for a meta architecture that the JAX package does not have."""
+    if name not in _ARCHS:
+        raise ValueError(f"unknown meta architecture {name!r}")
 
 
 def build_model(cfg: Config, device="cuda") -> nn.Module:
     """The module for ``cfg`` on ``device`` with uninitialised parameters: load
     them with ``convert.load_flax_params`` or draw them with
-    ``convert.init_params``."""
+    ``convert.init_params``.  The parameters are made on ``device``, where
+    their default init runs (on an 8-core CPU it took 3.7 s of the 3.9 s
+    build of a Swin-B model with a ViT-L tower); tensors a module makes from
+    numpy are moved after."""
     device = resolve_device(device)
     name = cfg.model.meta_architecture
-    if name in _ARCHS:
-        return _ARCHS[name][0](cfg.model).to(device)
-    raise NotImplementedError(f"meta architecture {name!r} is not ported yet (ROADMAP.md, "
-                              f"queue 1 item {ITEM_OF_ARCH.get(name, '8')})")
+    check_arch(name)
+    with device:
+        model = _ARCHS[name][0](cfg.model)
+    return model.to(device)
 
 
 def eval_model(model: nn.Module) -> nn.Module:
@@ -134,8 +147,7 @@ def make_loss_fn(cfg: Config, model: nn.Module, num_text_classes: int,
     picks its matcher's source.  Offline SAN raises
     (``meta.san.offline_san_loss_error``)."""
     name = cfg.model.meta_architecture
-    if name not in _ARCHS:
-        raise NotImplementedError(f"the {name!r} loss is not ported yet (ROADMAP.md)")
+    check_arch(name)
     online = is_online(cfg)
     if name == "SAN" and not online:
         raise offline_san_loss_error()
@@ -221,7 +233,9 @@ def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
     through the engine's post-process (``engine.ov2seg_topk``: padded to
     ``_bucket(T)``, the EMA tracker, the gated scores); the JAX package's
     ``make_eval_fn`` cannot run it (its ``is_online`` reads ``ov2seg_frame``
-    as a video decoder)."""
+    as a video decoder).  MasQCLIP's clip scores are the engine's single
+    shot's, ``masqclip_eval_scores`` (the JAX package's ``make_eval_fn``
+    would score its proposal logits)."""
     topk = cfg.model.test.topk_per_video
     online = is_online(cfg)
     model = eval_model(model)
@@ -244,6 +258,9 @@ def make_eval_fn(cfg: Config, model: nn.Module) -> Callable:
         frames, text_feats = frames.to(dev), text_feats.to(dev)
         t = frames.shape[0]
         out = model(frames, t, text_feats)
+        if cfg.model.meta_architecture == "MasQCLIP":
+            return inference_video_topk(masqclip_eval_scores(out)[0],
+                                        out["pred_masks"][0], topk)
         if not online:
             # clip-level logits (B, Q, C); SAN's video decoder gives per-frame
             # CLIP logits (B, T, Q, C): their mean over the frames

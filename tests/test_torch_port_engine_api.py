@@ -63,15 +63,16 @@ def test_engine_refuses_what_is_not_ported(setup):
                                 device="cpu")
     # BriVIS, OpenVISOnline and the offline archs are ported
     # (tests/test_torch_port_brivis_engine.py, tests/test_torch_port_openvis_engine.py,
-    # tests/test_torch_port_offline_engine.py), so is OV2Seg
-    # (tests/test_torch_port_ov2seg_engine.py); MasQCLIP is not
-    for arch in ("OV2SegOnline", "OV2Seg"):
-        engine._check_ported(dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, meta_architecture=arch)))
-    unported = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="MasQCLIP"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        engine.evaluate_dataset(unported, pm, DATASET, text, device="cpu")
+    # tests/test_torch_port_offline_engine.py), so are OV2Seg
+    # (tests/test_torch_port_ov2seg_engine.py) and MasQCLIP, single-shot
+    # (tests/test_torch_port_masqclip_engine.py); an unknown arch raises
+    for arch in ("OV2SegOnline", "OV2Seg", "MasQCLIP"):
+        train.check_arch(arch)
+    assert engine.is_single_shot("MasQCLIP")
+    unknown = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, meta_architecture="MaskCLIP"))
+    with pytest.raises(ValueError, match="unknown meta architecture"):
+        engine.evaluate_dataset(unknown, pm, DATASET, text, device="cpu")
     # BURST evaluation is ported (tests/test_torch_port_burst.py)
     burst = engine.make_evaluator(catalog.get("burst_val"))
     assert isinstance(burst, BURSTEvaluator)

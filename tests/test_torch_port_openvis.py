@@ -272,7 +272,8 @@ def test_ov2seg_masqclip_and_the_unported_decoders_raise_their_items():
     """Offline OpenVIS builds over the video decoder (its parity:
     tests/test_torch_port_offline.py), and so do OV2Seg, its decoder, its
     timm ResNet and the Swin trunk (tests/test_torch_port_ov2seg*.py,
-    tests/test_torch_port_swin*.py); MasQCLIP and the zero-shot decoders raise
+    tests/test_torch_port_swin*.py), and MasQCLIP with its MasQ tower
+    (tests/test_torch_port_masqclip*.py); the zero-shot decoders raise
     naming their ROADMAP.md items."""
     cfg = openvis_cfg(Config)
     offline = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -286,10 +287,10 @@ def test_ov2seg_masqclip_and_the_unported_decoders_raise_their_items():
         built = train.build_model(dataclasses.replace(ov2seg, model=dataclasses.replace(
             ov2seg.model, meta_architecture=arch)), device="cpu")
         assert built.segmenter.predictor.heads.head == "ov2seg"
-    unported = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, meta_architecture="MasQCLIP"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        train.build_model(unported, device="cpu")
+    masq = train.build_model(dataclasses.replace(offline, model=dataclasses.replace(
+        offline.model, meta_architecture="MasQCLIP")), device="cpu")
+    assert masq.segmenter.video and masq.segmenter.predictor.heads.head == "proposal"
+    assert masq.clip_adapter.resblock0.attn.new_q_proj.out_features == 768  # ViT-B/16
     heads = Segmenter(ov2seg.model).predictor.heads
     clip_dim = cfg.model.transformer_decoder.clip_embed_dim
     assert heads.zs_fc2.out_features == clip_dim and heads.object_embed.out_features == 2

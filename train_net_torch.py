@@ -31,6 +31,12 @@ JAX CLI reads it) and, ``--eval-only``, ``san_R50_bs16_6000st.yaml``: offline
 SAN's train step raises (``models/meta/san.py``), and ``--weights`` may name a
 SANOnline run's checkpoints, whose parameter tree is the same.
 
+MasQCLIP (``model.meta_architecture=MasQCLIP`` over the ``video_proposal``
+decoder) trains and evaluates as JAX's CLI runs it: ``model.weights`` grafted
+as for any arch, no CLIP visual weights in its MasQ tower (JAX grafts them
+under ``clip_adapter/visual``, which the tower does not read), no crop tower
+at eval, the dataset's class rows as its text (the last one its background).
+
 The text bank (``build_text_bank``), SAN's frozen tower
 (``model.clip_adapter.visual``) and, for the SimpleBaseline CLIP ensemble, the
 frozen CLIP visual tower of OpenVIS's mask-crop scoring and of the SimpleBaseline CLIP
@@ -204,8 +210,15 @@ def pretrained_init(cfg, model) -> None:
 
 def load_clip_visual(model, clip_tree) -> None:
     """SAN's frozen tower ``clip_adapter.visual`` from the CLIP checkpoint (JAX
-    ``train_net.py:213-218``)."""
-    model.clip_adapter.visual.load_state_dict(params_from_flax(clip_tree["visual"]), strict=True)
+    ``train_net.py:213-218``).  MasQCLIP's tower lives at
+    ``clip_adapter.resblock*``, where JAX's graft under ``clip_adapter/visual``
+    does not reach: it keeps its init, as in JAX (ROADMAP.md §3)."""
+    visual = getattr(model.clip_adapter, "visual", None)
+    if visual is None:
+        logger.info("the model has no clip_adapter.visual: the CLIP visual weights are not "
+                    "loaded (JAX grafts them where MasQCLIP's tower does not read them)")
+        return
+    visual.load_state_dict(params_from_flax(clip_tree["visual"]), strict=True)
     logger.info("loaded the CLIP visual weights into clip_adapter.visual")
 
 
