@@ -75,7 +75,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      clips each) against 1 process, in f32 and in bf16; and one step through
      ``--distributed`` under NCCL with a world of 1
   12. SimpleBaselineOnline's CLIP ensemble through the engine over phase 10's
-     dataset at full width, bf16 AMP, with the recipe's ``clip_adapter``
+     second video at full width, bf16 AMP, with the recipe's ``clip_adapter``
      (``bg_clip``, ViT-B/16, the vild prompts, weight 0.5) and phase 11's
      CLIP files: the text bank of the 40 categories, a warm-up over the first
      video, then the timed run with phase 10's split plus the CLIP crop
@@ -95,7 +95,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      1x2x480x864 (bf16 AMP, the aux layers' CLIP logits), the tower bit-equal
      after it and SAN's own parameters moved; its f32 loss and gradients at
      1x2x192x320, card against CPU; the engine with the recipe's eval settings
-     over phase 10's dataset, K4 on its tracking costs against
+     over phase 10's second video, K4 on its tracking costs against
      ``hungarian_plain``; the CLI as users train it (16 clips of 2 frames, 3
      steps, a checkpoint), then ``--eval-only``
   14. BriVIS with its recipe's model
@@ -125,7 +125,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      against the CPU (the crops through the test-tiny tower); the train step
      at 1x2x480x864 (bf16 AMP) and its f32 loss and gradients at 1x2x192x320,
      card against CPU; the engine with the recipe's eval settings over phase
-     10's dataset and its text bank, K4 on its tracking costs against
+     10's second video and its text bank, K4 on its tracking costs against
      ``hungarian_plain``; the CLI as users train it (16 clips of 2 frames, 2
      steps, a checkpoint), then ``--eval-only`` through the tower
   16. BURST evaluation (``configs/openvoc_ytvis_coco/eval_burst.yaml``:
@@ -147,11 +147,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      phase 10's dataset through the ensemble (single shots of 40 and 24
      frames, the 133-frame video in two windows of 128; K1 only). Offline
      OpenVIS (``openvis_R50_bs16_6000st.yaml``, ``model.weights`` emptied):
-     its train step and engine; the ``frame_proposal`` recipe's engine on
-     phase 10's f32 check video, card against CPU. Offline SAN
-     (``san_R50_bs16_6000st.yaml``): three timed shots with their split
-     (CLIP front, segmenter, CLIP post, top-k), an f32 shot card against CPU,
-     the engine, its train step refused with its named error.
+     its train step and engine (phase 10's last two videos: the second's
+     single shot, the 133-frame video in windows of 128); the
+     ``frame_proposal`` recipe's engine on phase 10's f32 check video, card
+     against CPU. Offline SAN (``san_R50_bs16_6000st.yaml``): three timed
+     shots with their split (CLIP front, segmenter, CLIP post, top-k), an f32
+     shot card against CPU, the engine (the last two videos), its train step
+     refused with its named error.
      VideoMaskFormer and MinVIS: an f32 window each card against CPU, MinVIS
      through the engine on the check video card against CPU with K4 on its
      tracking costs against ``hungarian_plain``. The CLI: the offline
@@ -191,9 +193,22 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      while its weights decay) with K1 and K5 on its recorded inputs against
      the plain versions; its f32 loss, pseudo-labels and gradients at
      1x2x192x320, card against CPU, the segmenter's gradients exactly zero;
-     the engine over phase 10's dataset (single shots, the 133-frame video in
-     windows of 128); the CLI (8 clips of 2 frames, 2 steps) and
-     ``--eval-only``
+     the engine over phase 10's last two videos (a single shot, the 133-frame
+     video in windows of 128); the CLI (8
+     clips of 2 frames, 2 steps) and ``--eval-only``
+  20. SimpleBaselineOnline-R50 from phase 11's recipe with
+     ``model.pixel_decoder.name=transformer_enc solver.optimizer=sgd`` (the
+     FPN pixel decoder behind 6 DETR encoder layers over res5; no MSDA, so no
+     K1-K3): three 10x384x640 bf16 windows with their split (backbone, pixel
+     decoder, frame decoder, tracking), K4 once a window and on its costs
+     against ``hungarian_plain``; the SGD train step at 1x2x480x864 (K4 1, K5
+     30, K6 20 a step; the decayed parameters moved, the frozen ones fixed)
+     with K4, K5 and K6 on its recorded inputs against the plain versions;
+     card against CPU in f32 at 192x320 for ``fpn`` and ``transformer_enc``
+     (the window, the step's loss and gradients, one SGD update), the
+     ``frame_zero_shot`` and ``video_zero_shot`` segmenters and a full-width
+     ``DETRTransformer``; the CLI (8 one-frame clips, 2 steps, ``--resume``
+     for a third with SGD's trace restored, ``--eval-only``)
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
@@ -201,7 +216,8 @@ engine's whole-video run of phase 10, the CLI's training and eval runs of
 phase 11, the ensemble's run of phase 12, SAN's window, train step,
 engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15,
 the BURST engine and CLI runs of phase 16, the offline paths of phase 17,
-OV2Seg's and the Swin recipes' of phase 18 and MasQCLIP's of phase 19),
+OV2Seg's and the Swin recipes' of phase 18, MasQCLIP's of phase 19 and the
+FPN/SGD path's of phase 20),
 its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
@@ -254,7 +270,9 @@ from openvis_tpu_torch.models.clip.model import model_shape
 from openvis_tpu_torch.models.meta import brivis as brivis_meta
 from openvis_tpu_torch.models.meta import masqclip as masqclip_meta
 from openvis_tpu_torch.models.meta import ov2seg as ov2seg_meta
+from openvis_tpu_torch.models import pixel_decoder
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule
+from openvis_tpu_torch.models.position_encoding import position_encoding_2d
 from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.segmenter import Segmenter
 from openvis_tpu_torch.ops import cuda_build, hungarian_cuda, msda_cuda, point_sample_cuda
@@ -266,7 +284,14 @@ from openvis_tpu_torch.ops.point_sample import (
     sample_maps_shared_plain,
     sorted_uniform_points,
 )
-from openvis_tpu_torch.parallel.train_step import config_labels, global_norm, stop_frozen_gradients
+from openvis_tpu_torch.parallel.train_step import (
+    config_labels,
+    global_norm,
+    label_params,
+    make_lr_schedule,
+    make_optimizer,
+    stop_frozen_gradients,
+)
 from openvis_tpu_torch.structures import ClipTargets
 from openvis_tpu_torch.utils.image import resize_bilinear_torch_hw
 
@@ -377,6 +402,16 @@ ENGINE_VIDEOS = (  # (height, width, frames, instances)
     (360, 640, 133, 1),   # longer than max_frames, as OVIS and LV-VIS videos are
 )
 ENGINE_WINDOW = 10        # the re-run with test.window_inference: windows of 10
+# the online engine runs of phases 12, 13 and 15 read the second video
+# alone: their path through the engine is phase 10's, which reads all three
+# (as do phase 14's BriVIS, for its resampler, phase 17's offline
+# SimpleBaseline and phase 18's OV2Seg, for its EMA chain); the offline runs
+# of phases 17 (OpenVIS and SAN) and 19 read the last two: a single shot of
+# 19 -> 24 frames and the 133-frame video in windows of 128 (their windowed
+# single shot). A run reads its videos through _engine_subset and warms up
+# on the first of them.
+ONLINE_ENGINE_VIDEOS = ENGINE_VIDEOS[1:2]
+OFFLINE_ENGINE_VIDEOS = ENGINE_VIDEOS[1:]
 # f32 card (kernels) against CPU (plain): one short video on a small canvas
 # (min_size_test and pad_size cut to its size) in windows of 4, so that the
 # CPU side stays short
@@ -533,6 +568,17 @@ SWIN_CHECK_OVERRIDES = ("model.backbone.name=swin", "model.backbone.swin_embed_d
                         "model.backbone.swin_drop_path_rate=0.0")
 SWIN_TRAINED = ("segmenter.backbone.stage2_block17.attn.relative_position_bias_table",
                 "segmenter.backbone.patch_embed.weight", "clip_adapter.attn_proj0.weight")
+# phase 20: SimpleBaselineOnline-R50 from its recipe (CLI_CONFIG) with the
+# FPN pixel decoder behind a DETR encoder over res5, trained with SGD
+FPN_OVERRIDES = ("model.pixel_decoder.name=transformer_enc", "solver.optimizer=sgd")
+FPN_CLI_STEPS, FPN_RESUME_STEPS = 2, 1
+# 20.3: the one SGD step card against CPU at a rate whose updates (decay
+# included) stand well above the f32 masters' rounding
+FPN_CHECK_LR = 1.0
+# f32, TF32 off, card against CPU: the same arithmetic in other orders through
+# the segmenter (~60 layers) or the DETR transformer (12 layers)
+ZERO_SHOT_REL_TO_MAX = 1e-3
+DETR_REL_TO_MAX = 1e-4
 
 
 _START = time.perf_counter()
@@ -566,26 +612,31 @@ def device_ms(fn, kernel: str, iters: int = TIMING_ITERS) -> float:
     host work or its other launches (zeroing, casts).
 
     The profiler may drop kernel events of a window (one at its edge is
-    common; an H100 run once saw 8 of 20), so a window that saw fewer than
-    half of the calls' launches, or more launches than calls, is profiled
-    again, up to ``PROFILE_WINDOWS`` times."""
+    common; H100 runs saw 8 of 20, in every window of one run), so a window
+    that saw fewer than half of the calls' launches, or more launches than
+    calls, is profiled again, up to ``PROFILE_WINDOWS`` times, then in
+    windows of a quarter as many calls.  A line beside the reading gives the
+    window it came from and the (calls, launches seen) of those refused."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(PROFILE_WINDOWS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if iters // 2 <= len(us) <= iters:
-            return sum(us) / len(us) / 1e3
-        seen.append(len(us))
-    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in {PROFILE_WINDOWS} "
-                         f"windows of {iters} calls")
+    for calls in (iters, max(2, iters // 4)):
+        for _ in range(PROFILE_WINDOWS):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+            if calls // 2 <= len(us) <= calls:
+                ms = sum(us) / len(us) / 1e3
+                emit({"phase": "device_ms_window", "kernel": kernel, "device_ms": ms,
+                      "calls": calls, "launches_seen": len(us), "windows_refused": seen})
+                return ms
+            seen.append((calls, len(us)))
+    raise AssertionError(f"the profiler saw (calls, launches of {kernel}) {seen}")
 
 
 def bound(nbytes: float, flops: float):
@@ -1390,6 +1441,13 @@ def _train_batch(rng, h, w, n, device, t=TRAIN_T, text_dim=TEXT_DIM):
             "text_feats": torch.from_numpy(_text(rng, text_dim)).to(device)}
 
 
+def _msda_layers(cfg) -> int:
+    """K1's launches a forward: one an encoder layer of the deformable pixel
+    decoder; the FPN decoders (``fpn``, ``transformer_enc``) run no MSDA."""
+    pd = cfg.model.pixel_decoder
+    return pd.transformer_enc_layers if pd.name == "msdeform" else 0
+
+
 def _train_launches(cfg, h, w, steps, t=TRAIN_T):
     """K1-K6 launches of ``steps`` train steps on an (h, w) canvas: per
     decoder layer K5 samples the masks for the matcher and for the two loss
@@ -1401,7 +1459,7 @@ def _train_launches(cfg, h, w, steps, t=TRAIN_T):
     the image layer and the resampler's L+1 layers; K6 for the resampler's
     layers only (the image layer is frozen).  MasQCLIP: K1 in the forward,
     K5 in ``label_assign``, nothing else."""
-    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    enc = _msda_layers(cfg)
     if cfg.model.meta_architecture == "BriVIS":
         layers = cfg.model.resampler.num_layers + 1
         targets = 2 if t * h * w <= KERNEL_MAX_HW else 1
@@ -1479,9 +1537,11 @@ def phase_train(card: str, rec: MsdaRecorder):
     return launches, by_shape
 
 
-def _loss_and_grads(cfg, model, batch, records):
+def _loss_and_grads(cfg, model, batch, records, assign=None):
     """Loss, metrics, gradients of the trainable parameters and the matcher's
-    assignments of one f32 train-step forward and backward."""
+    (cost, assignment) pairs, in ``records``, of one f32 train-step forward
+    and backward.  ``assign``: the assignments, in call order, that the loss
+    takes in place of the matcher's own (which are still recorded)."""
     stop_frozen_gradients(model, config_labels(cfg, model))
     loss_fn = train.make_loss_fn(cfg, model, K_CLASSES)
     params = dict(model.named_parameters())
@@ -1491,7 +1551,7 @@ def _loss_and_grads(cfg, model, batch, records):
     def recording(cost):
         cols = solve(cost)
         records.append((cost.cpu(), cols.cpu()))
-        return cols
+        return cols if assign is None else assign[len(records) - 1].to(cols.device)
 
     criterion.batched_hungarian = ov2seg_meta.batched_hungarian = recording
     try:
@@ -1500,6 +1560,54 @@ def _loss_and_grads(cfg, model, batch, records):
         criterion.batched_hungarian = ov2seg_meta.batched_hungarian = solve
     grads = torch.autograd.grad(loss, [params[n] for n in names])
     return loss.item(), {k: v.item() for k, v in metrics.items()}, dict(zip(names, grads))
+
+
+def _hold_update_to_plain(phase, cfg, cpu_model, gpu_model, ref_g, got_g, check_params):
+    """One step of ``make_optimizer(cfg, ...)`` on the CPU model from the CPU's
+    gradients and on the card's from the card's (``_hold_train_to_plain``:
+    the same assignments); the parameters after it: the update of each of
+    ``check_params`` held to the CPU's relative to its largest element (the
+    gradients' bound) beyond the rounding of the new f32 masters, each of
+    them moved, the frozen parameters unmoved on both sides."""
+    masters = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    updates, kinds = [], []
+    for model, grads in ((cpu_model, ref_g), (gpu_model, got_g)):
+        labels = config_labels(cfg, model)
+        params = dict(model.named_parameters())
+        before = {n: p.detach().clone() for n, p in params.items()}
+        opt = make_optimizer(cfg, params, labels)
+        opt.step(params, {n: grads[n] for n in opt.hyper})
+        updates.append({n: (p.detach() - before[n]).cpu() for n, p in params.items()})
+        kinds.append(type(opt).__name__)
+    ref_u, got_u = updates
+    frozen = [n for n, g in config_labels(cfg, cpu_model).items() if g == "frozen"]
+    frozen_moved = [n for n in frozen if ref_u[n].any() or got_u[n].any()]
+    # the key projections' biases: their exact gradient is 0 (softmax is
+    # shift-invariant), so both sides update them by rounding noise alone,
+    # held below a thousandth of the largest update
+    noise = [n for n in ref_u if n.endswith("k_proj.bias")]
+    largest = max(u.abs().max().item() for u in ref_u.values())
+    noise_max = max((max(ref_u[n].abs().max().item(), got_u[n].abs().max().item())
+                     for n in noise), default=0.0)
+    # each side rounds its new masters to f32, so equal updates may read an
+    # ulp of the parameter apart (phase 20.4's bound)
+    eps = torch.finfo(torch.float32).eps
+    rel = {n: _rel_to_max(got_u[n], ref_u[n], 2 * eps * (masters[n].abs() + ref_u[n].abs()))
+           for n in check_params}
+    held_unmoved = [n for n in check_params if not ref_u[n].any()]
+    moved = sum(int(u.any()) for n, u in ref_u.items() if n not in frozen)
+    unmoved = [n for n, u in ref_u.items() if n not in frozen and not u.any()]
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    emit({"phase": f"{phase}_update", "optimizer": kinds, "lr": cfg.solver.base_lr,
+          "tensors_moved": moved, "tensors_unmoved": unmoved[:5],
+          "frozen": len(frozen), "frozen_moved": frozen_moved[:5],
+          "update_tensors_held": len(rel),
+          "update_max_err_beyond_rounding_rel_to_max": dict(worst[:8]),
+          "k_proj_bias_update_max_rel_to_largest": noise_max / largest,
+          "tol": {"rel_to_max": TRAIN_GRAD_REL_TO_MAX, "k_proj_bias_rel_to_largest": 1e-3}})
+    if frozen_moved or held_unmoved or worst[0][1] > TRAIN_GRAD_REL_TO_MAX \
+            or noise_max > 1e-3 * largest:
+        raise AssertionError(f"{phase}: the card's {kinds[1]} update disagrees with the CPU's")
 
 
 def _offsets_off_centres(model, seed):
@@ -1529,7 +1637,11 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params, t=TRAIN_T):
     """Phase 9's comparison of ``cpu_model`` (f32) on the CPU and a copy on
     the card, with the gradients of ``check_params`` held element for
     element, on a clip of ``t`` frames; every kernel of the path (BriVIS's
-    has no K2/K3) must launch."""
+    has no K2/K3) must launch.  The CPU's loss takes the card's matcher
+    assignments, each held to the CPU's own optimum within HUNGARIAN_RTOL of
+    its cost: at a near-tie the two matchers may pick different ones, and
+    the losses' gradients would then differ beyond any bound.  Returns the
+    card's model and the (CPU, card) gradients."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the CPU side's oneDNN f32 convolution weight-gradient differs from a
@@ -1542,35 +1654,34 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params, t=TRAIN_T):
     gpu_batch = {"pixels": batch["pixels"].to(DEVICE), "targets": batch["targets"].to(DEVICE),
                  "text_feats": batch["text_feats"].to(DEVICE)}
     ref_rec, got_rec = [], []
-    t0 = time.perf_counter()
-    ref_loss, ref_m, ref_g = _loss_and_grads(cfg, cpu_model, batch, ref_rec)
-    cpu_s = time.perf_counter() - t0
     reset_counts()
     got_loss, got_m, got_g = _loss_and_grads(cfg, gpu_model, gpu_batch, got_rec)
     torch.cuda.synchronize()
     launches = read_counts()
+    t0 = time.perf_counter()
+    ref_loss, ref_m, ref_g = _loss_and_grads(cfg, cpu_model, batch, ref_rec,
+                                             assign=[cols for _, cols in got_rec])
+    cpu_s = time.perf_counter() - t0
     ref_norm = global_norm(ref_g.values()).item()
     got_norm = global_norm(t.cpu() for t in got_g.values()).item()
     losses = {"total": (got_loss, ref_loss), **{k: (got_m[k], ref_m[k]) for k in ref_m}}
     loss_rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, (a, b) in losses.items()}
-    grad_rel = {}
-    for name in check_params:
-        r, a = ref_g[name], got_g[name].cpu()
-        grad_rel[name] = ((a - r).abs().max() / r.abs().max()).item()
-    (ref_cost, ref_cols), (_, got_cols) = ref_rec[0], got_rec[0]
-    same_assign = bool(torch.equal(ref_cols, got_cols))
+    grad_rel = {name: _rel_to_max(got_g[name], ref_g[name]) for name in check_params}
+    same_assign = all(torch.equal(r, g) for (_, r), (_, g) in zip(ref_rec, got_rec))
     cost_gap = 0.0
-    if not same_assign:
-        rows = torch.arange(ref_cost.shape[1])
-        for c, a, b in zip(ref_cost.double(), got_cols, ref_cols):
-            gap = abs(c[rows, a].sum() - c[rows, b].sum()).item()
-            cost_gap = max(cost_gap, gap / max(abs(c[rows, b].sum().item()), 1e-30))
+    for (cost, ref_cols), (_, got_cols) in zip(ref_rec, got_rec):
+        rows = torch.arange(cost.shape[1])
+        for c, a, b in zip(cost.double(), got_cols, ref_cols):
+            best = c[rows, b].sum().item()
+            cost_gap = max(cost_gap, abs(c[rows, a].sum().item() - best) / max(abs(best), 1e-30))
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])
     emit({"phase": phase, "dtype": "float32", "tf32": False,
           "batch": [1, t, CHECK_TRAIN_H, CHECK_TRAIN_W], "targets": CHECK_TRAIN_N,
           "losses_kernel_plain": losses, "loss_rel_err": loss_rel,
           "grad_norm_kernel_plain": [got_norm, ref_norm],
           "grad_norm_rel_err": abs(got_norm - ref_norm) / ref_norm,
-          "grad_max_err_rel_to_max": grad_rel, "assignments_equal": same_assign,
+          "grad_tensors_held": len(grad_rel), "grad_max_err_rel_to_max": dict(worst[:8]),
+          "matcher_calls": len(got_rec), "assignments_equal": same_assign,
           "assignment_cost_rel_gap": cost_gap, "kernel_launches": launches,
           "cpu_seconds": cpu_s,
           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
@@ -1580,11 +1691,20 @@ def _hold_train_to_plain(phase, cfg, cpu_model, check_params, t=TRAIN_T):
     if not (all(v <= TRAIN_LOSS_RTOL for v in loss_rel.values())
             and abs(got_norm - ref_norm) <= TRAIN_GRAD_NORM_RTOL * ref_norm
             and all(v <= TRAIN_GRAD_REL_TO_MAX for v in grad_rel.values())
-            and cost_gap <= HUNGARIAN_RTOL):
+            and len(ref_rec) == len(got_rec) and cost_gap <= HUNGARIAN_RTOL):
         raise AssertionError("the kernel train step disagrees with the plain train step")
     path = _train_launches(cfg, CHECK_TRAIN_H, CHECK_TRAIN_W, 1, t)
     if any(launches[k] == 0 for k, n in path.items() if n):
         raise AssertionError(f"the card's train step skipped a kernel: {launches}")
+    return gpu_model, ref_g, got_g
+
+
+def _rel_to_max(got, ref, slack=0.0) -> float:
+    """max |got - ref| beyond ``slack`` (elementwise) over max |ref| (0 where
+    both are all zero)."""
+    err = ((got.cpu() - ref).abs() - slack).clamp(min=0).max().item()
+    top = ref.abs().max().item()
+    return err / top if top else (0.0 if err == 0 else float("inf"))
 
 
 class EngineSpans:
@@ -1764,26 +1884,51 @@ def _masks_agree(a, b) -> float:
     return float((ma == mb).mean())
 
 
-def _engine_run(cfg, model, text, device, clip_visual_apply=None):
-    """One evaluate_dataset over the registered ENGINE_DATASET: (metrics,
-    spans, wall seconds, launches)."""
+def _engine_run(cfg, model, text, device, clip_visual_apply=None, videos=ENGINE_VIDEOS):
+    """One evaluate_dataset over ``videos`` of the registered ENGINE_DATASET
+    (``_engine_subset``): (metrics, spans, wall seconds, launches)."""
+    dataset = _engine_subset(videos)
     reset_counts()
     with EngineSpans() as spans:
         t0 = time.perf_counter()
-        metrics = engine.evaluate_dataset(cfg, model, ENGINE_DATASET, text,
+        metrics = engine.evaluate_dataset(cfg, model, dataset, text,
                                           clip_visual_apply=clip_visual_apply, device=device)
         wall = time.perf_counter() - t0
     return metrics, spans, wall, read_counts()
 
 
 def _engine_warm_up(cfg, model, text, clip_visual_apply=None, dataset=None):
-    """One engine run over the first video of ``dataset`` (ENGINE_DATASET):
-    cuDNN's and cuBLAS's choices, the allocator; then the peak is reset."""
+    """One engine run over the first video of ``dataset`` (ENGINE_DATASET's
+    unless given): cuDNN's and cuBLAS's choices, the allocator; then the
+    peak is reset."""
     engine.evaluate_dataset(dataclasses.replace(cfg, output_dir=cfg.output_dir + "_warm"),
                             model, dataset or ENGINE_DATASET, text, max_videos=1,
                             clip_visual_apply=clip_visual_apply, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+
+
+def _engine_subset(videos):
+    """The name of a dataset that holds ``videos`` (entries of ENGINE_VIDEOS)
+    of ENGINE_DATASET: ENGINE_DATASET itself for all of them, else the same
+    frames under annotations cut to those videos (written once a run beside
+    the dataset's own, registered under their ids)."""
+    if tuple(videos) == ENGINE_VIDEOS:
+        return ENGINE_DATASET
+    src, info, _, _ = _ENGINE_DATA
+    ids = [ENGINE_VIDEOS.index(v) + 1 for v in videos]
+    tag = "_".join(map(str, ids))
+    json_file = os.path.join(os.path.dirname(info.json_file), f"annotations_{tag}.json")
+    if not os.path.exists(os.path.join(src, json_file)):
+        with open(os.path.join(src, info.json_file)) as f:
+            js = json.load(f)
+        js["videos"] = [v for v in js["videos"] if v["id"] in ids]
+        js["annotations"] = [a for a in js["annotations"] if a["video_id"] in ids]
+        with open(os.path.join(src, json_file), "w") as f:
+            json.dump(js, f)
+    name = f"{ENGINE_DATASET}_{tag}"
+    catalog.register(dataclasses.replace(info, name=name, json_file=json_file))
+    return name
 
 
 def _engine_split(spans, wall):
@@ -1814,7 +1959,7 @@ def _engine_expected(cfg, launches, videos=None):
     nothing."""
     videos = ENGINE_VIDEOS if videos is None else videos
     window = engine.window_size(cfg)
-    enc = cfg.model.pixel_decoder.transformer_enc_layers
+    enc = _msda_layers(cfg)
     if engine.is_single_shot(cfg.model.meta_architecture):
         shots = sum(1 if engine._bucket(t) <= cfg.model.test.max_frames else -(-t // window)
                     for _, _, t, _ in videos)
@@ -2105,9 +2250,9 @@ def _clip_tower_vs_cpu(cfg, visual, card: str):
 
 def phase_ensemble(card: str, clip):
     """Phase 12: SimpleBaselineOnline's CLIP ensemble through the engine over
-    phase 10's dataset at full width, bf16 AMP, with the recipe's
+    phase 10's second video at full width, bf16 AMP, with the recipe's
     clip_adapter and the CLIP files ``clip``: the text bank of the 40
-    categories, a warm-up over the first video, then the timed run with its
+    categories, a warm-up over that video, then the timed run with its
     split (phase 10's stages, the CLIP crop scoring and its roi_crops on the
     device, the text bank's host time), its peak and launches; the
     full-width tower in f32 against the CPU; the whole ensemble engine at
@@ -2132,15 +2277,16 @@ def phase_ensemble(card: str, clip):
         tower_s = time.perf_counter() - t0
         # cuDNN's and cuBLAS's choices for the tower's shapes, the allocator
         engine.evaluate_dataset(dataclasses.replace(cfg, output_dir=os.path.join(root, "warm")),
-                                model, ENGINE_DATASET, text, max_videos=1,
-                                clip_visual_apply=visual, device=DEVICE)
+                                model, _engine_subset(ONLINE_ENGINE_VIDEOS), text,
+                                max_videos=1, clip_visual_apply=visual, device=DEVICE)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual)
+        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual,
+                                                     ONLINE_ENGINE_VIDEOS)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         masters_kept = all(torch.equal(p, masters[n]) for n, p in model.named_parameters())
         del masters
-        expected = _engine_expected(cfg, launches)
+        expected = _engine_expected(cfg, launches, ONLINE_ENGINE_VIDEOS)
         q = cfg.model.transformer_decoder.num_queries
         shape = model_shape(cfg.model.clip_adapter.clip_model_name)
         crops = q * spans.frames
@@ -2157,7 +2303,8 @@ def phase_ensemble(card: str, clip):
                  "text_bank_host": bank_s, "clip_tower_load_host": tower_s}
         finite = all(np.isfinite(v) for v in metrics.values())
         emit({"phase": "ensemble_full_width", "dataset": "synthetic YTVIS-2019 format, 40 classes",
-              "videos_hwtn": ENGINE_VIDEOS, "dtype": "bf16 AMP", "window": cfg.model.test.max_frames,
+              "videos_hwtn": ONLINE_ENGINE_VIDEOS, "dtype": "bf16 AMP",
+              "window": cfg.model.test.max_frames,
               "clip_adapter": dataclasses.asdict(cfg.model.clip_adapter),
               "metrics": metrics, "metrics_finite": finite, "predictions": len(spans.preds),
               "launches": launches, "expected_launches": expected,
@@ -2173,7 +2320,8 @@ def phase_ensemble(card: str, clip):
             raise AssertionError(f"ensemble launches {launches} != {expected}")
         if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
             raise AssertionError(f"ensemble metrics {metrics}, {len(spans.preds)} predictions")
-        if len(spans.events["ensemble_topk"]) != len(ENGINE_VIDEOS) or not spans.events["roi_crop"]:
+        if len(spans.events["ensemble_topk"]) != len(ONLINE_ENGINE_VIDEOS) or \
+                not spans.events["roi_crop"]:
             raise AssertionError("the engine did not run the CLIP ensemble")
         if not masters_kept:
             raise AssertionError("evaluate_dataset changed the caller's f32 parameters")
@@ -2220,9 +2368,13 @@ def _state_copy(state):
 
 
 def _states_equal(a, b) -> bool:
+    """The step, the count, the parameters and the optimizer's state (AdamW's
+    ``mu``/``nu`` or SGD's ``trace``) of ``b`` (a checkpoint) all in ``a``,
+    bit for bit."""
     return (a["step"] == b["step"] and a["count"] == b["count"]
-            and all(set(a[k]) == set(b[k]) and all(torch.equal(a[k][n], b[k][n]) for n in a[k])
-                    for k in ("params", "mu", "nu")))
+            and all(k in a and set(a[k]) == set(v)
+                    and all(torch.equal(a[k][n], v[n]) for n in v)
+                    for k, v in b.items() if isinstance(v, dict)))
 
 
 def _to_device(batch, device):
@@ -2441,16 +2593,7 @@ def _hold_k4_k5_k6(path: str, k4_rec: HungarianRecorder, sampler_rec: SamplerInp
     """K4 on every cost recorded on ``path`` (``k4_calls`` calls) against
     ``hungarian_plain``, and K5 and K6 on their first call of each shape
     against the plain sampler, with phases 3 and 5's tolerances."""
-    plain = _plain_assignments(k4_rec.costs)
-    cols = [c for batch_cols in k4_rec.cols for c in batch_cols]
-    differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols)) if not torch.equal(ref, got)]
-    steps = [n for _, n in plain]
-    emit({"phase": "k4_recorded_inputs", "path": path,
-          "shapes": [list(c.shape) for c in k4_rec.costs], "equal_to_plain": not differ,
-          "problems_differing": differ,
-          "steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)}})
-    if differ or len(k4_rec.costs) != k4_calls:
-        raise AssertionError(f"K4 on the {path} costs differs from hungarian_plain: {differ}")
+    _hold_k4(path, k4_rec, k4_calls)
     _hold_k5(path, sampler_rec)
     for shape, (coords, grad, map_shape, dtype) in sorted(sampler_rec.dvalue.items()):
         coords, grad = coords.to(DEVICE), grad.to(DEVICE)
@@ -2467,6 +2610,21 @@ def _hold_k4_k5_k6(path: str, k4_rec: HungarianRecorder, sampler_rec: SamplerInp
             raise AssertionError(f"K6 disagrees with the plain sampler on the {path} {shape}")
     if not sampler_rec.fwd or not sampler_rec.dvalue:
         raise AssertionError(f"the {path} step launched no K5 or no K6")
+
+
+def _hold_k4(path: str, k4_rec: HungarianRecorder, k4_calls: int) -> None:
+    """K4 on every cost recorded on ``path`` (``k4_calls`` calls) against
+    ``hungarian_plain``, element for element."""
+    plain = _plain_assignments(k4_rec.costs)
+    cols = [c for batch_cols in k4_rec.cols for c in batch_cols]
+    differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols)) if not torch.equal(ref, got)]
+    steps = [n for _, n in plain]
+    emit({"phase": "k4_recorded_inputs", "path": path,
+          "shapes": [list(c.shape) for c in k4_rec.costs], "equal_to_plain": not differ,
+          "problems_differing": differ,
+          "steps_per_problem": {"mean": float(np.mean(steps)), "max": max(steps)}})
+    if differ or len(k4_rec.costs) != k4_calls:
+        raise AssertionError(f"K4 on the {path} costs differs from hungarian_plain: {differ}")
 
 
 def _hold_k5(path: str, sampler_rec: SamplerInputs):
@@ -2882,7 +3040,7 @@ def phase_san_train_vs_plain(cfg, tree):
 
 def phase_san_engine(card, clip, tree):
     """13.5: the engine with the SAN recipe's eval settings over phase 10's
-    dataset: a warm-up over the first video, then the timed run with its
+    dataset's second video: a warm-up over it, then the timed run with its
     split and peak, K4 recorded; K4 on the engine's own costs against
     hungarian_plain.  Returns the launches of the timed run."""
     root = tempfile.mkdtemp(prefix="chip_smoke_san_engine_")
@@ -2892,11 +3050,12 @@ def phase_san_engine(card, clip, tree):
                           f"output_dir={os.path.join(root, 'out')}")
         model = _san_model(cfg, tree, DEVICE, SEED)
         text = _text(np.random.RandomState(SEED))
-        _engine_warm_up(cfg, model, text)
+        _engine_warm_up(cfg, model, text, dataset=_engine_subset(ONLINE_ENGINE_VIDEOS))
         with HungarianRecorder() as tracking:
-            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE)
+            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE,
+                                                         videos=ONLINE_ENGINE_VIDEOS)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        expected = _engine_expected(cfg, launches)
+        expected = _engine_expected(cfg, launches, ONLINE_ENGINE_VIDEOS)
         finite = all(np.isfinite(v) for v in metrics.values())
         t0 = time.perf_counter()
         plain = _plain_assignments(tracking.costs)
@@ -2905,7 +3064,8 @@ def phase_san_engine(card, clip, tree):
         differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols))
                   if not torch.equal(ref, got)]
         emit({"phase": "san_engine_full_width", "config": SAN_CONFIG,
-              "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+              "dataset": "synthetic YTVIS-2019 format, 40 classes",
+              "videos_hwtn": ONLINE_ENGINE_VIDEOS,
               "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
               "window": engine.window_size(cfg), "metrics": metrics, "metrics_finite": finite,
               "predictions": len(spans.preds), "launches": launches,
@@ -3672,9 +3832,9 @@ def phase_openvis_train_vs_plain(cfg):
 
 def phase_openvis_engine(card, clip, visual):
     """15.4: the engine with the OpenVIS recipe's eval settings (windows of
-    10, bf16 AMP) over phase 10's dataset, the crops through the recipe's
-    tower and the text bank of its 40 categories: a warm-up over the first
-    video, then the timed run with its split (phase 10's stages, the crops
+    10, bf16 AMP) over phase 10's dataset's second video, the crops through
+    the recipe's tower and the text bank of its 40 categories: a warm-up over
+    that video, then the timed run with its split (phase 10's stages, the crops
     and their roi_crops on the device) and peak, K4 recorded and held against
     hungarian_plain.  Returns the launches of the timed run."""
     import train_net_torch as cli
@@ -3689,11 +3849,12 @@ def phase_openvis_engine(card, clip, visual):
         text = cli.build_text_bank(cfg, DEVICE).encode(
             list(catalog.get(ENGINE_DATASET).thing_classes))
         bank_s = time.perf_counter() - t0
-        _engine_warm_up(cfg, model, text, visual)
+        _engine_warm_up(cfg, model, text, visual, _engine_subset(ONLINE_ENGINE_VIDEOS))
         with HungarianRecorder() as tracking:
-            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual)
+            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual,
+                                                         ONLINE_ENGINE_VIDEOS)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        expected = _engine_expected(cfg, launches)
+        expected = _engine_expected(cfg, launches, ONLINE_ENGINE_VIDEOS)
         finite = all(np.isfinite(v) for v in metrics.values())
         plain = _plain_assignments(tracking.costs)
         cols = [c for cost_cols in tracking.cols for c in cost_cols]
@@ -3708,7 +3869,8 @@ def phase_openvis_engine(card, clip, visual):
                  "clip_crops_device": clip_s, "roi_crop_device": spans.device_seconds("roi_crop"),
                  "text_bank_host": bank_s}
         emit({"phase": "openvis_engine_full_width", "config": OPENVIS_CONFIG,
-              "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+              "dataset": "synthetic YTVIS-2019 format, 40 classes",
+              "videos_hwtn": ONLINE_ENGINE_VIDEOS,
               "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
               "window": engine.window_size(cfg), "metrics": metrics, "metrics_finite": finite,
               "predictions": len(spans.preds), "launches": launches,
@@ -3721,7 +3883,8 @@ def phase_openvis_engine(card, clip, visual):
             raise AssertionError(f"OpenVIS engine launches {launches} != {expected}")
         if not finite or set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds:
             raise AssertionError(f"OpenVIS engine metrics {metrics}, {len(spans.preds)} predictions")
-        if len(spans.events["openvis_topk"]) != len(ENGINE_VIDEOS) or not spans.events["roi_crop"]:
+        if len(spans.events["openvis_topk"]) != len(ONLINE_ENGINE_VIDEOS) or \
+                not spans.events["roi_crop"]:
             raise AssertionError("the engine did not score the crops with CLIP")
         if differ or len(tracking.costs) != expected["hungarian"]:
             raise AssertionError(f"K4 on the OpenVIS engine's costs differs from hungarian_plain: "
@@ -4140,18 +4303,19 @@ def phase_offline_train_vs_plain(cfg):
                          TRAIN_CHECK_PARAMS + ("segmenter.predictor.heads.class_embed.layer1.weight",))
 
 
-def phase_offline_engine(card, cfg, label, model, text, visual=None):
+def phase_offline_engine(card, cfg, label, model, text, visual=None, videos=ENGINE_VIDEOS):
     """17.4 / 17.5 / 17.6: the engine with an offline recipe's eval settings
-    over phase 10's dataset (written to ``cfg.datasets.root``): a warm-up over
-    the first video, then the timed run, single-shot (36 -> 40 and 19 -> 24
-    frames; the 133-frame video in windows of ``window_size``), with its split
-    (the shots, the windows, the CLIP crops), its peak and its launches: K1
-    only.  Returns the launches of the timed run."""
-    _engine_warm_up(cfg, model, text, visual)
+    over ``videos`` of phase 10's dataset (written to ``cfg.datasets.root``;
+    ``_engine_subset``): a warm-up over the first of them, then the timed
+    run, single-shot (36 -> 40 and 19 -> 24 frames; the 133-frame video in
+    windows of ``window_size``), with its split (the shots, the windows, the
+    CLIP crops), its peak and its launches: K1 only.  Returns the launches
+    of the timed run."""
+    _engine_warm_up(cfg, model, text, visual, _engine_subset(videos))
     with HungarianRecorder() as tracking:
-        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual)
+        metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual, videos)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = _engine_expected(cfg, launches)
+    expected = _engine_expected(cfg, launches, videos)
     finite = all(np.isfinite(v) for v in metrics.values())
     split = {**_engine_split(spans, wall),
              "single_shots_device": spans.device_seconds("single_shot"),
@@ -4160,10 +4324,10 @@ def phase_offline_engine(card, cfg, label, model, text, visual=None):
              "roi_crop_device": spans.device_seconds("roi_crop")}
     max_frames, window = cfg.model.test.max_frames, engine.window_size(cfg)
     forwards = [[engine._bucket(t)] if engine._bucket(t) <= max_frames else
-                [window] * -(-t // window) for _, _, t, _ in ENGINE_VIDEOS]
+                [window] * -(-t // window) for _, _, t, _ in videos]
     emit({"phase": f"{label}_full_width", "config": cfg.model.meta_architecture,
           "decoder": cfg.model.transformer_decoder.name,
-          "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": ENGINE_VIDEOS,
+          "dataset": "synthetic YTVIS-2019 format, 40 classes", "videos_hwtn": videos,
           "forward_frames_per_video": forwards, "ensemble": visual is not None,
           "dtype": "bf16 AMP" if cfg.model.test.amp else "float32",
           "max_frames": max_frames, "window": window, "metrics": metrics,
@@ -4231,7 +4395,8 @@ def phase_offline_openvis(card, clip):
         cfg = _engine_root_config(OPENVIS_OFFLINE_CONFIG, clip, root, "model.weights=")
         model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
         launches["openvis_offline_engine"] = phase_offline_engine(
-            card, cfg, "openvis_offline_engine", model, _text(np.random.RandomState(SEED)))
+            card, cfg, "openvis_offline_engine", model, _text(np.random.RandomState(SEED)),
+            videos=OFFLINE_ENGINE_VIDEOS)
         del model
         torch.cuda.empty_cache()
         name = _write_check_video(root, cats)
@@ -4302,7 +4467,8 @@ def phase_offline_san(card, clip):
         cfg = _engine_root_config(SAN_OFFLINE_CONFIG, clip, root)
         model = _san_model(cfg, tree, DEVICE, SEED)
         engine_launches = phase_offline_engine(card, cfg, "san_offline_engine", model,
-                                               _text(np.random.RandomState(SEED)))
+                                               _text(np.random.RandomState(SEED)),
+                                               videos=OFFLINE_ENGINE_VIDEOS)
         del model
         torch.cuda.empty_cache()
     finally:
@@ -5041,16 +5207,18 @@ def phase_masq_train_vs_plain(cfg):
 
 def phase_masq_engine(card, clip):
     """19.5: the engine with the recipe's eval settings (bf16 AMP,
-    ``test.max_frames`` 128, no window inference) over phase 10's dataset:
-    single shots of 40 and 24 frames, the 133-frame video in two windows of
-    128; K1 only.  Returns the launches."""
+    ``test.max_frames`` 128, no window inference) over phase 10's dataset's
+    last two videos: a single shot of 24 frames, the 133-frame video in
+    windows of 128 (MasQCLIP's windowed reduction); K1 only.  Returns
+    the launches."""
     root = tempfile.mkdtemp(prefix="chip_smoke_masqclip_engine_")
     try:
         _write_engine_dataset(root)
         cfg = _engine_root_config(OFFLINE_CONFIG, clip, root, *MASQ_OVERRIDES)
         model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
         launches = phase_offline_engine(card, cfg, "masqclip_engine", model,
-                                        _text(np.random.RandomState(SEED)))
+                                        _text(np.random.RandomState(SEED)),
+                                        videos=OFFLINE_ENGINE_VIDEOS)
         del model
         torch.cuda.empty_cache()
         return launches
@@ -5073,6 +5241,304 @@ def phase_masqclip(card, clip):
     emit({"phase": "masqclip_done", "seconds": time.perf_counter() - t0})
     return launches, {"msda_fwd": {"recorded_masqclip_train_ms": k1_ms},
                       "point_sample_fwd": {"recorded_masqclip_train_ms": k5_ms}}
+
+
+def _fpn_config(clip, *overrides):
+    """The SimpleBaselineOnline recipe (CLI_CONFIG) with FPN_OVERRIDES, the
+    CLIP files ``clip`` (weights, bpe) and ``overrides``."""
+    return load_config(CLI_CONFIG, [f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}", *FPN_OVERRIDES,
+                                    *overrides])
+
+
+def phase_fpn_window(card, cfg):
+    """20.1: the eval window at full width, bf16: three 10x384x640 windows
+    through ``train.make_eval_fn`` with their split (backbone, pixel decoder,
+    frame decoder, tracking); K4 once a window and no K1-K3; K4 on the
+    windows' own tracking costs against ``hungarian_plain``.  Returns the
+    launches."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
+        dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    clips = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    outs, ms, peak, launches = _timed_shots(model, cfg, clips, text)
+    seg = model.segmenter
+    with HungarianRecorder() as tracking, StageSpans({
+            "backbone": (seg.backbone, "forward"), "pixel_decoder": (seg.pixel_decoder, "forward"),
+            "frame_decoder": (seg.predictor, "forward"),
+            "tracking": (train, "track_by_embeds")}) as spans:
+        timed = spans.window(train.make_eval_fn(cfg, model))
+        for x in clips:
+            timed(x, text)
+    split = spans.split_ms("scores_topk", NUM_WINDOWS)
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, K_CLASSES, t, h, w, f"FPN window {i}")
+    expected = {**{k: 0 for k in launches}, "hungarian": NUM_WINDOWS}
+    pd = cfg.model.pixel_decoder
+    emit({"phase": "fpn_window_full_width", "config": CLI_CONFIG, "overrides": FPN_OVERRIDES,
+          "pixel_decoder": {"name": pd.name, "encoder_layers": pd.transformer_enc_layers,
+                            "heads": pd.num_heads, "ffn": pd.dim_feedforward,
+                            "conv_dim": pd.conv_dim},
+          "dtype": "bfloat16", "windows": NUM_WINDOWS, "frames_per_window": t,
+          "frame_hw": [h, w], "ms_per_window": ms, "frames_per_s": t / (ms / 1e3),
+          "split_ms_per_window": split, "peak_mem_gib": peak, "launches": launches,
+          "expected_launches": expected, "card": card})
+    if launches != expected:
+        raise AssertionError(f"FPN window launches {launches} != {expected}")
+    _hold_k4("fpn_eval", tracking, NUM_WINDOWS)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fpn_train(card, cfg):
+    """20.2: the train step at full width (1x2x480x864, N=40, bf16 AMP, f32
+    masters, SGD): one warm-up and three timed steps; K4 1, K5 30 and K6 20 a
+    step, no K1-K3; every decayed parameter moved, the frozen ones bit-equal
+    and without SGD state; K4, K5 and K6 on the warm-up step's recorded
+    inputs against their plain versions.  Returns the launches of the timed
+    steps."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+    labels = config_labels(cfg, model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with HungarianRecorder() as k4_rec, SamplerInputs() as s_rec:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator; its inputs recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with SamplerShapes() as shapes:
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    by_shape = {case: shapes.counts.pop(shape, 0) for case, shape in SAMPLER_CASES.items()}
+    other_shapes = {str(k): v for k, v in shapes.counts.items()}
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    opt = step.state.opt
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters()}
+    frozen = [n for n, g in labels.items() if g == "frozen"]
+    decayed = [n for n, (_, wd) in opt.hyper.items() if wd]
+    emit({"phase": "fpn_train_full_width", "config": CLI_CONFIG, "overrides": FPN_OVERRIDES,
+          "optimizer": type(opt).__name__, "dtype": "bf16 AMP, f32 masters",
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "k5_launches_by_shape": by_shape, "k5_launches_at_other_shapes": other_shapes,
+          "tensors_moved": sum(moved[n] for n in opt.hyper), "tensors_trained": len(opt.hyper),
+          "decayed_unmoved": [n for n in decayed if not moved[n]][:5],
+          "frozen": len(frozen), "frozen_moved": [n for n in frozen if moved[n]][:5],
+          "card": card})
+    if type(opt).__name__ != "SGD" or set(opt.trace) != set(opt.hyper) or \
+            set(opt.hyper) & set(frozen):
+        raise AssertionError(f"FPN train: the optimizer is {type(opt).__name__}, or it keeps "
+                             "state for a frozen parameter")
+    if launches != expected:
+        raise AssertionError(f"FPN train launches {launches} != {expected}")
+    if other_shapes or min(by_shape.values()) == 0:
+        raise AssertionError(f"FPN train: K5's shapes {by_shape}, others {other_shapes}, are not "
+                             f"phase 5's {SAMPLER_CASES}")
+    if not all(np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"FPN train: a metric is not finite: {values}")
+    if any(moved[n] for n in frozen) or not all(moved[n] for n in decayed):
+        raise AssertionError("FPN train: SGD moved a frozen parameter or left a decayed one")
+    _hold_k4_k5_k6("fpn_train", k4_rec, s_rec, k4_calls=1)
+    del model, step, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fpn_vs_plain(clip):
+    """20.3: card (kernels) against CPU (plain) in f32, TF32 off, at
+    1x2x192x320: for ``fpn`` and ``transformer_enc``, the window's scores and
+    masks, the step's loss and the gradients of every trainable tensor
+    (phase 9's bounds, both sides on the card's assignments) and the update
+    of one SGD step from them; the ``frame_zero_shot`` (over ``fpn``) and
+    ``video_zero_shot`` (over ``transformer_enc``) segmenters' logits and
+    masks; one full-width ``DETRTransformer`` forward (6 + 6 layers, 100
+    queries over res5's 12x20 tokens)."""
+    for name in ("fpn", "transformer_enc"):
+        cfg = _fpn_config(clip, f"model.pixel_decoder.name={name}", "solver.amp=false",
+                          f"solver.base_lr={FPN_CHECK_LR}")
+        cpu_model = init_params(train.build_model(cfg, device="cpu"), seed=SEED + 1)
+        _hold_window_to_plain(f"{name}_kernels_vs_plain", cfg, cpu_model, CHECK_TRAIN_H,
+                              CHECK_TRAIN_W, kernels=("hungarian",))
+        # every trainable tensor but the key projections' biases, whose exact
+        # gradient is 0 (``_hold_update_to_plain`` holds their noise)
+        labels = config_labels(cfg, cpu_model)
+        held = [n for n, g in labels.items() if g != "frozen" and not n.endswith("k_proj.bias")]
+        step = f"{name}_train_kernels_vs_plain"
+        gpu_model, ref_g, got_g = _hold_train_to_plain(step, cfg, cpu_model.train(), held)
+        _hold_update_to_plain(step, cfg, cpu_model, gpu_model, ref_g, got_g, held)
+        del gpu_model, ref_g, got_g
+        del cpu_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 4)
+    frames = torch.from_numpy(rng.randn(CHECK_FRAMES, CHECK_TRAIN_H, CHECK_TRAIN_W, 3)
+                              .astype(np.float32))
+    for pixel, decoder in (("fpn", "frame_zero_shot"), ("transformer_enc", "video_zero_shot")):
+        cfg = _fpn_config(clip, f"model.pixel_decoder.name={pixel}",
+                          f"model.transformer_decoder.name={decoder}")
+        seg = init_params(Segmenter(cfg.model), seed=SEED + 4).eval()
+        gpu = copy.deepcopy(seg).to(DEVICE)
+        with torch.no_grad():
+            ref = seg(frames, CHECK_FRAMES)
+            got = gpu(frames.to(DEVICE), CHECK_FRAMES)
+        hidden = cfg.model.transformer_decoder.hidden_dim
+        rel = {k: _rel_to_max(got[k], ref[k]) for k in ("pred_logits_all", "pred_masks_all")}
+        shapes = {k: list(got[k].shape) for k in rel}
+        emit({"phase": f"{decoder}_kernels_vs_plain", "pixel_decoder": pixel, "dtype": "float32",
+              "tf32": False, "frames": CHECK_FRAMES, "frame_hw": [CHECK_TRAIN_H, CHECK_TRAIN_W],
+              "shapes": shapes, "max_err_rel_to_max": rel,
+              "tol": {"rel_to_max": ZERO_SHOT_REL_TO_MAX}})
+        if shapes["pred_logits_all"][-1] != hidden + 2 or \
+                max(rel.values()) > ZERO_SHOT_REL_TO_MAX:
+            raise AssertionError(f"{decoder}: the card's segmenter disagrees with the CPU's")
+        del seg, gpu
+    detr = init_params(pixel_decoder.DETRTransformer(), seed=SEED + 5).eval()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    src = torch.randn(2, 256, FRAME_H // 32, FRAME_W // 32, generator=gen)
+    pos = position_encoding_2d(FRAME_H // 32, FRAME_W // 32, 128).permute(2, 0, 1)[None]
+    query = torch.randn(100, 256, generator=gen)
+    gpu = copy.deepcopy(detr).to(DEVICE)
+    with torch.no_grad():
+        ref = detr(src, query, pos)
+        got = gpu(src.to(DEVICE), query.to(DEVICE), pos.to(DEVICE))
+    rel = {"hs": _rel_to_max(got[0], ref[0]), "memory": _rel_to_max(got[1], ref[1])}
+    emit({"phase": "detr_transformer_kernels_vs_plain", "dtype": "float32", "tf32": False,
+          "src": list(src.shape), "queries": 100, "hs": list(got[0].shape),
+          "max_err_rel_to_max": rel, "tol": {"rel_to_max": DETR_REL_TO_MAX}})
+    if max(rel.values()) > DETR_REL_TO_MAX:
+        raise AssertionError("DETRTransformer: the card disagrees with the CPU")
+
+
+def phase_fpn_cli(card, clip):
+    """20.4: the CLI with the recipe and FPN_OVERRIDES as users train it (8
+    one-frame clips a step over phase 11's synthetic sets): FPN_CLI_STEPS
+    steps and a checkpoint, ``--resume`` for FPN_RESUME_STEPS more (the SGD
+    state restored from the file bit for bit, its trace carried into the
+    step: the update is the rate times the new trace), then ``--eval-only``.
+    Returns the launches of the first training run and of the eval."""
+    import train_net_torch as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_fpn_cli_")
+    restored, orig = [], cli.restore_checkpoint
+
+    def recorded_restore(src, state):
+        out = orig(src, state)
+        if out is not None:
+            restored.append(_state_copy(state))
+        return out
+
+    cli.restore_checkpoint = recorded_restore
+    try:
+        out = os.path.join(root, "out")
+        steps = FPN_CLI_STEPS + FPN_RESUME_STEPS
+        common = _cli_data(root) + [f"model.clip_adapter.weights={clip[0]}",
+                                    f"model.clip_adapter.bpe_vocab={clip[1]}", *FPN_OVERRIDES,
+                                    f"solver.checkpoint_period={FPN_CLI_STEPS}",
+                                    f"output_dir={out}"]
+
+        def run(*flags, max_iter=FPN_CLI_STEPS):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cli.main(["--config-file", CLI_CONFIG, *flags, *common,
+                      f"solver.max_iter={max_iter}"])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0, read_counts(),
+                    torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        wall, launches, peak = run()
+        cfg = load_config(CLI_CONFIG, common)
+        ckpt_dir = os.path.join(out, "checkpoints")
+        first = load_checkpoint(ckpt_dir)
+        wall2, launches2, peak2 = run("--resume", max_iter=steps)
+        last = load_checkpoint(ckpt_dir)
+        lines = _metrics_lines(out)
+        expected = _train_launches(cfg, *cfg.input.pad_size, FPN_CLI_STEPS)
+        expected2 = _train_launches(cfg, *cfg.input.pad_size, FPN_RESUME_STEPS)
+        equal = len(restored) == 1 and _states_equal(restored[0], first)
+        # the resumed step moved each parameter by the rate times the trace it
+        # left, to the f32 masters' rounding
+        lr = make_lr_schedule(cfg)(FPN_CLI_STEPS)
+        groups = label_params(first["params"].items(), freeze_at=cfg.model.backbone.freeze_at)
+        mult = {n: cfg.solver.backbone_multiplier if g.startswith("backbone") else 1.0
+                for n, g in groups.items() if g != "frozen"}
+        eps = torch.finfo(torch.float32).eps
+        off = 0.0
+        for n, m in mult.items():
+            step_n = lr * m * last["trace"][n]
+            gap = ((first["params"][n] - last["params"][n]) - step_n).abs()
+            ulps = 2 * eps * (first["params"][n].abs() + step_n.abs()) + 1e-30
+            off = max(off, (gap / ulps).max().item())
+        carried = sum(int(first["trace"][n].any()) for n in mult)
+        ms = [r["step_s"] * 1e3 for r in lines]
+        emit({"phase": "fpn_cli_train", "config": CLI_CONFIG, "overrides": FPN_OVERRIDES,
+              "batch": [cfg.solver.ims_per_batch, cfg.input.sampling_frame_num],
+              "points": cfg.model.criterion.train_num_points, "amp": cfg.solver.amp,
+              "steps": [r["step"] for r in lines], "ms_per_step": ms,
+              "loader_wait_ms": [r["data_wait_s"] * 1e3 for r in lines],
+              "losses": [r["total_loss"] for r in lines],
+              "grad_norms": [r["grad_norm"] for r in lines], "peak_mem_gib": [peak, peak2],
+              "wall_s": [wall, wall2], "launches": [launches, launches2],
+              "expected_launches": [expected, expected2],
+              "restored_equal_to_checkpoint_bitwise": equal,
+              "restored_trace_tensors_nonzero": carried, "count_after_resume": last["count"],
+              "resumed_update_vs_rate_times_trace_in_ulps": off, "card": card})
+        finite = all(np.isfinite(r[k]) for r in lines
+                     for k in ("total_loss", "loss_ce", "loss_mask", "loss_dice", "grad_norm"))
+        if [launches, launches2] != [expected, expected2]:
+            raise AssertionError(f"FPN CLI train launches {[launches, launches2]} != "
+                                 f"{[expected, expected2]}")
+        if [r["step"] for r in lines] != list(range(1, steps + 1)) or not finite:
+            raise AssertionError(f"the FPN CLI's metrics.jsonl is not {steps} finite steps")
+        if not equal or set(first) != {"step", "params", "trace", "count"} or not carried or \
+                last["count"] != steps or off > 1.0:
+            raise AssertionError("the FPN CLI's --resume did not carry SGD's trace on")
+        del first, last, restored[:]
+        wall3, launches3, _ = run("--eval-only", "--weights", ckpt_dir)
+        ds = cfg.datasets.test[0]
+        with open(os.path.join(out, f"metrics_{ds}.json")) as f:
+            metrics = json.load(f)
+        expected3 = _engine_expected(cfg, launches3, CLI_EVAL_VIDEOS)
+        emit({"phase": "fpn_cli_eval", "metrics": metrics, "wall_s": wall3,
+              "launches": launches3, "expected_launches": expected3, "card": card})
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the FPN CLI's eval wrote {metrics}")
+        if launches3 != expected3:
+            raise AssertionError(f"FPN CLI eval launches {launches3} != {expected3}")
+        return launches, launches3
+    finally:
+        cli.restore_checkpoint = orig
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_fpn(card, clip):
+    """Phase 20: SimpleBaselineOnline-R50 with the ``transformer_enc`` pixel
+    decoder and SGD; returns its paths' launch counts by name."""
+    t0 = time.perf_counter()
+    cfg = _fpn_config(clip)
+    launches = {"fpn_eval": phase_fpn_window(card, cfg)}
+    launches["fpn_train"] = phase_fpn_train(card, cfg)
+    phase_fpn_vs_plain(clip)
+    launches["fpn_cli_train"], launches["fpn_cli_eval"] = phase_fpn_cli(card, clip)
+    emit({"phase": "fpn_done", "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def main() -> int:
@@ -5119,6 +5585,7 @@ def _main() -> int:
         ov2seg_launches = phase_ov2seg(card, clip)
         swin_launches = phase_swin(card, clip, clip_dir)
         masq_launches, masq_recorded = phase_masqclip(card, clip)
+        fpn_launches = phase_fpn(card, clip)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in (*cli_recorded.items(), *masq_recorded.items()):
@@ -5148,7 +5615,8 @@ def _main() -> int:
                               **{path: n[name] for path, n in offline_launches.items()},
                               **{path: n[name] for path, n in ov2seg_launches.items()},
                               **{path: n[name] for path, n in swin_launches.items()},
-                              **{path: n[name] for path, n in masq_launches.items()}},
+                              **{path: n[name] for path, n in masq_launches.items()},
+                              **{path: n[name] for path, n in fpn_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -2,8 +2,10 @@
 
 Port of ``openvis_tpu/checkpoint.py`` (orbax there).  A checkpoint directory
 holds ``ckpt_<step>.pt`` files, each a ``TrainState.state_dict()``: the step,
-the f32 parameters, the AdamW moments ``mu``/``nu`` and ``count``, as CPU
-tensors and ints only, so they load with ``weights_only=True``.  A file is
+the f32 parameters and the optimizer's state (AdamW's moments ``mu``/``nu``
+or SGD's ``trace``, and ``count``), as CPU tensors and ints only, so they load
+with ``weights_only=True``.  A checkpoint of one optimizer restored under the
+other raises, naming both.  A file is
 written under a temporary name, synced and renamed, so a run killed while
 saving leaves the previous checkpoint readable; the latest ``keep`` (5, as
 orbax's ``max_to_keep`` there) are kept.

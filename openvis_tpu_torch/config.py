@@ -47,7 +47,7 @@ class BackboneConfig:
 class PixelDecoderConfig:
     """Reference: ``MODEL.SEM_SEG_HEAD`` deformable-encoder knobs."""
 
-    name: str = "msdeform"            # "msdeform" | "fpn"
+    name: str = "msdeform"            # "msdeform" | "fpn" | "transformer_enc"
     conv_dim: int = 256
     mask_dim: int = 256
     transformer_in_features: Tuple[str, ...] = ("res3", "res4", "res5")

@@ -3,17 +3,18 @@
 Port of ``openvis_tpu/models/segmenter.py:33-153``: the backbone
 (``resnet``; OV2Seg's ``timm_resnet``, the same trunk with
 ``stride_in_1x1=False``; ``swin``, whose stages' widths ``embed_dim * 2^i``
-go to the pixel decoder's input projections), the ``msdeform`` pixel decoder
-(with SAN's CLIP taps as its ``extra_features``) and the transformer decoder
-that ``transformer_decoder.name`` names, by the JAX package's
-``_DECODER_KINDS``: the frame decoders (``frame``, ``frame_embedding``,
-``frame_proposal``, ``side_adapter_frame``, ``ov2seg_frame``) and the video
-decoders of the offline archs (``video``, ``video_embedding``,
-``video_proposal``, ``side_adapter_video``), whose mask features go in as
-(B, T, ...).  The zero-shot decoders and the other pixel decoders raise
-``NotImplementedError`` naming their ROADMAP.md item (queue 1 item 8.8).
-Input is the flattened frame batch (B*T, H, W, 3) in NHWC, as in the JAX
-package; the trunk runs NCHW.
+go to the pixel decoder's input projections), the pixel decoder that
+``pixel_decoder.name`` names (``msdeform``, with SAN's CLIP taps as its
+``extra_features``; ``fpn`` and ``transformer_enc``, the FPN with a DETR
+encoder over res5, which ignore them as the JAX package does) and the
+transformer decoder that ``transformer_decoder.name`` names, by the JAX
+package's ``_DECODER_KINDS``: the frame decoders (``frame``,
+``frame_embedding``, ``frame_proposal``, ``side_adapter_frame``,
+``ov2seg_frame``, ``frame_zero_shot``) and the video decoders (``video``,
+``video_embedding``, ``video_proposal``, ``side_adapter_video``,
+``video_zero_shot``), whose mask features go in as (B, T, ...).  An unknown
+name raises ``ValueError``.  Input is the flattened frame batch (B*T, H, W,
+3) in NHWC, as in the JAX package; the trunk runs NCHW.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from openvis_tpu_torch.config import ModelConfig
+from openvis_tpu_torch.config import ModelConfig, PixelDecoderConfig
 from openvis_tpu_torch.models.backbone import swin
 from openvis_tpu_torch.models.backbone.resnet import ResNet, feature_channels
-from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+from openvis_tpu_torch.models.pixel_decoder import BasePixelDecoder, MSDeformAttnPixelDecoder
 from openvis_tpu_torch.models.transformer_decoder import MaskedTransformerDecoder
 
 
@@ -41,14 +42,9 @@ DECODER_KINDS = {
     "side_adapter_frame": ("frame", "side_adapter"),
     "side_adapter_video": ("video", "side_adapter"),
     "ov2seg_frame": ("frame", "ov2seg"),
+    "frame_zero_shot": ("frame", "zero_shot"),
+    "video_zero_shot": ("video", "zero_shot"),
 }
-# what is still to port and its ROADMAP.md queue 1 item
-_UNPORTED_DECODERS = {"frame_zero_shot": "8.8", "video_zero_shot": "8.8"}
-_UNPORTED_PIXEL_DECODERS = {"fpn": "8.8", "transformer_enc": "8.8"}
-
-
-def _not_ported(what: str, where: str = "queue 1") -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {where})")
 
 
 def build_backbone(cfg: ModelConfig):
@@ -71,28 +67,33 @@ def build_backbone(cfg: ModelConfig):
     raise ValueError(f"unknown backbone {b.name!r}")
 
 
+def build_pixel_decoder(pd: PixelDecoderConfig, channels: Dict[str, int]) -> nn.Module:
+    """``pixel_decoder.name``'s module (JAX ``segmenter.py:102-122``)."""
+    if pd.name in ("fpn", "transformer_enc"):
+        return BasePixelDecoder(
+            channels, conv_dim=pd.conv_dim, mask_dim=pd.mask_dim,
+            transformer_enc_layers=(pd.transformer_enc_layers
+                                    if pd.name == "transformer_enc" else 0),
+            nheads=pd.num_heads, dim_feedforward=pd.dim_feedforward)
+    if pd.name == "msdeform":
+        return MSDeformAttnPixelDecoder(
+            channels, conv_dim=pd.conv_dim, mask_dim=pd.mask_dim,
+            transformer_in_features=tuple(pd.transformer_in_features),
+            enc_layers=pd.transformer_enc_layers, n_heads=pd.num_heads,
+            n_points=pd.num_points, d_ffn=pd.dim_feedforward)
+    raise ValueError(f"unknown pixel decoder {pd.name!r}")
+
+
 class Segmenter(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         pd, td = cfg.pixel_decoder, cfg.transformer_decoder
-        if pd.name != "msdeform":
-            raise _not_ported(f"pixel decoder {pd.name!r}",
-                              f"queue 1 item {_UNPORTED_PIXEL_DECODERS.get(pd.name, 8)}")
-        if td.name in _UNPORTED_DECODERS:
-            raise _not_ported(f"transformer decoder {td.name!r}",
-                              f"queue 1 item {_UNPORTED_DECODERS[td.name]}")
         if td.name not in DECODER_KINDS:
             raise ValueError(f"unknown transformer decoder {td.name!r}")
         mode, head = DECODER_KINDS[td.name]
         self.video = mode == "video"
         self.backbone, channels = build_backbone(cfg)
-        self.pixel_decoder = MSDeformAttnPixelDecoder(
-            channels,
-            conv_dim=pd.conv_dim, mask_dim=pd.mask_dim,
-            transformer_in_features=tuple(pd.transformer_in_features),
-            enc_layers=pd.transformer_enc_layers, n_heads=pd.num_heads,
-            n_points=pd.num_points, d_ffn=pd.dim_feedforward,
-        )
+        self.pixel_decoder = build_pixel_decoder(pd, channels)
         self.predictor = MaskedTransformerDecoder(
             mode=mode, head=head, hidden_dim=td.hidden_dim,
             num_queries=td.num_queries, nheads=td.nheads,

@@ -18,7 +18,11 @@ Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
     ``frame_mask2former_transformer_decoder.py:199-207``), OV2Seg's ``ov2seg``
     (``zs_fc1`` to D/2, ReLU, ``zs_fc2`` to D, beside ``object_embed`` to 2
     objectness logits, packed as ``[e | obj]``; JAX
-    ``transformer_decoder.py:224-230``) and SAN's
+    ``transformer_decoder.py:224-230``), the ``zero_shot`` head (the normed
+    decoder output itself beside a 2-layer ``object_embed`` MLP to 2
+    objectness logits, packed as ``[x | obj]``, width ``hidden_dim + 2``;
+    JAX ``transformer_decoder.py:217-223``: matched against the text
+    outside the decoder, and no meta-architecture reads it) and SAN's
     ``side_adapter`` (per CLIP head, attention-bias maps
     ``einsum(attn_embed(x), attn_features)`` over the mask features
     downsampled by 4 and run through three 1x1 convolutions,
@@ -29,8 +33,6 @@ Port of ``openvis_tpu/models/transformer_decoder.py`` (``MLP``,
     t-major, with 3-D position encodings, and its masks span the T frames.
     The attention over a clip is not masked by frame: frames appended to a
     clip change the real frames' outputs.
-
-Not ported: the zero-shot heads (ROADMAP.md, queue 1 item 8.8).
 """
 
 from __future__ import annotations
@@ -171,8 +173,10 @@ class PredictionHeads(nn.Module):
     ``embedding``: a 2-layer MLP to the CLIP width; ``proposal``: OpenVIS's
     class-agnostic objectness, one Linear to 2 logits; ``ov2seg``: the
     zero-shot embedding (hidden -> D/2 -> D) and 2 objectness logits packed
-    on the last axis; ``side_adapter``: a 3-layer MLP whose queries dot the
-    attention features into per-head bias maps."""
+    on the last axis; ``zero_shot``: the normed output and 2 objectness
+    logits from a 2-layer MLP, packed on the last axis; ``side_adapter``: a
+    3-layer MLP whose queries dot the attention features into per-head bias
+    maps."""
 
     def __init__(self, hidden_dim: int, mask_dim: int, head: str = "embedding",
                  clip_dim: int = 512, num_classes: int = 0):
@@ -189,12 +193,13 @@ class PredictionHeads(nn.Module):
             self.zs_fc1 = nn.Linear(hidden_dim, clip_dim // 2)
             self.zs_fc2 = nn.Linear(clip_dim // 2, clip_dim)
             self.object_embed = nn.Linear(hidden_dim, 2)
+        elif head == "zero_shot":
+            self.object_embed = MLP(hidden_dim, hidden_dim, 2, 2)
         elif head == "side_adapter":
             self.attn_embed = MLP(hidden_dim, hidden_dim, hidden_dim, 3)
         else:
-            raise NotImplementedError(
-                f"decoder head {head!r} is not ported yet (ROADMAP.md, queue 1)"
-            )
+            # the JAX package's "none" head has no decoder name (_DECODER_KINDS)
+            raise ValueError(f"unknown decoder head {head!r}")
         self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3)
 
     def forward(self, output, mask_features, attn_features=None):
@@ -210,6 +215,8 @@ class PredictionHeads(nn.Module):
         if self.head == "ov2seg":
             logits = torch.cat([self.zs_fc2(F.relu(self.zs_fc1(x))), self.object_embed(x)],
                                dim=-1)
+        elif self.head == "zero_shot":
+            logits = torch.cat([x, self.object_embed(x)], dim=-1)
         elif self.head != "side_adapter":
             logits = self.class_embed(x)
         elif video:

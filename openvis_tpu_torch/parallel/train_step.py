@@ -9,12 +9,16 @@ Port of ``openvis_tpu/parallel/train_step.py``:
   * ``frozen`` parameters get ``requires_grad=False`` (``stop_frozen_gradients``),
     so they have no gradient and no share of the clip norm;
   * ``make_lr_schedule``: optax's warmup joined to a step schedule;
-  * ``AdamW``: optax's ``clip_by_global_norm`` (divides by the norm, not by
-    norm + 1e-6 as ``torch.nn.utils.clip_grad_norm_`` does), then per group
-    ``scale_by_adam`` -> ``add_decayed_weights`` -> ``-lr * multiplier``
-    (backbone x0.1; weight decay 0 for norms, biases and embeddings);
-  * ``TrainState``: the step, the f32 master parameters and the AdamW state,
-    with ``state_dict`` / ``load_state_dict`` for checkpoints;
+  * ``make_optimizer``: ``AdamW`` or ``SGD`` by ``solver.optimizer``, each
+    optax's ``clip_by_global_norm`` (divides by the norm, not by norm + 1e-6
+    as ``torch.nn.utils.clip_grad_norm_`` does) over all groups, then per
+    group (backbone x0.1; weight decay 0 for norms, biases and embeddings)
+    ``scale_by_adam`` -> ``add_decayed_weights`` -> ``-lr * multiplier``, or
+    ``add_decayed_weights`` -> ``trace(decay=0.9)`` -> ``-lr * multiplier``
+    (d2's SGD: L2 folded in before the momentum, no dampening, no Nesterov);
+    the ``frozen`` group keeps no state and does not move;
+  * ``TrainState``: the step, the f32 master parameters and the optimizer's
+    state, with ``state_dict`` / ``load_state_dict`` for checkpoints;
   * ``TrainStep``: loss, gradients, their sum over the processes
     (``parallel/dist.py``), the global gradient norm (once), the update;
     returns the metrics of the global batch.
@@ -132,17 +136,18 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-class AdamW:
-    """The JAX package's optimizer (``make_optimizer``) over named f32
-    parameters; the frozen ones are left out."""
+class _Optimizer:
+    """What AdamW and SGD share: the group table of the non-frozen names
+    (multiplier, weight decay), the learning-rate schedule read at the
+    optimizer's own count, and the global-norm clip."""
+
+    name = ""
+    slots: Tuple[str, ...] = ()
 
     def __init__(self, cfg: Config, params: Dict[str, torch.Tensor], labels: Dict[str, str]):
         s = cfg.solver
-        if s.optimizer.lower() != "adamw":
-            raise NotImplementedError(f"solver.optimizer={s.optimizer!r} is not ported yet")
         self.lr = make_lr_schedule(cfg)
         self.clip = s.clip_value if s.clip_gradients else None
-        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
         hyper = {
             "main": (1.0, s.weight_decay),
             "nodecay": (1.0, s.weight_decay_norm),
@@ -152,20 +157,49 @@ class AdamW:
             "backbone_embed": (s.backbone_multiplier, s.weight_decay_embed),
         }
         self.hyper = {n: hyper[labels[n]] for n in params if labels[n] != "frozen"}
-        self.mu = {n: torch.zeros_like(params[n]) for n in self.hyper}
-        self.nu = {n: torch.zeros_like(params[n]) for n in self.hyper}
+        for slot in self.slots:
+            setattr(self, slot, {n: torch.zeros_like(params[n]) for n in self.hyper})
         self.count = 0
+
+    def _clipped(self, grads: Dict[str, torch.Tensor],
+                 grad_norm: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.clip is None:
+            return grads
+        g_norm = global_norm(grads.values()) if grad_norm is None else grad_norm
+        keep = g_norm < self.clip
+        return {n: torch.where(keep, g, (g / g_norm) * self.clip) for n, g in grads.items()}
+
+    def state_dict(self) -> Dict:
+        return {**{k: dict(getattr(self, k)) for k in self.slots}, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        saved = next((o.name for o in _OPTIMIZERS.values() if o.slots[0] in state), "no")
+        if saved != self.name:
+            raise ValueError(f"the checkpoint holds {saved} state; this run's optimizer is "
+                             f"{self.name} (solver.optimizer)")
+        for name in self.slots:
+            mine, theirs = getattr(self, name), state[name]
+            if set(mine) != set(theirs):
+                raise KeyError(f"{self.name} {name}: {sorted(set(mine) ^ set(theirs))[:3]} differ")
+            for n, t in mine.items():
+                t.copy_(theirs[n])
+        self.count = int(state["count"])
+
+
+class AdamW(_Optimizer):
+    """The JAX package's AdamW (``make_optimizer``) over named f32
+    parameters; the frozen ones are left out."""
+
+    name, slots = "adamw", ("mu", "nu")
+    b1, b2, eps = 0.9, 0.999, 1e-8
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
              grad_norm: Optional[torch.Tensor] = None) -> None:
         """One update in place.  ``grads`` holds every non-frozen name;
         ``grad_norm``: their global norm, if the caller has it."""
-        if self.clip is not None:
-            g_norm = global_norm(grads.values()) if grad_norm is None else grad_norm
-            keep = g_norm < self.clip
-            grads = {n: torch.where(keep, g, (g / g_norm) * self.clip)
-                     for n, g in grads.items()}
+        grads = self._clipped(grads, grad_norm)
         lr = self.lr(self.count)
         self.count += 1
         bc1 = 1.0 - self.b1 ** self.count
@@ -181,18 +215,39 @@ class AdamW:
             p.add_(u, alpha=-(lr * mult))
 
 
-    def state_dict(self) -> Dict:
-        return {"mu": dict(self.mu), "nu": dict(self.nu), "count": self.count}
+class SGD(_Optimizer):
+    """The JAX package's SGD (``make_optimizer``, optax's
+    ``add_decayed_weights`` -> ``trace(decay=0.9)`` per group): the trace
+    t <- (g + wd * p) + 0.9 * t, so the first step's trace is the decayed
+    gradient, then p <- p - lr(count) * multiplier * t."""
+
+    name, slots = "sgd", ("trace",)
+    momentum = 0.9
 
     @torch.no_grad()
-    def load_state_dict(self, state: Dict) -> None:
-        for name in ("mu", "nu"):
-            mine, theirs = getattr(self, name), state[name]
-            if set(mine) != set(theirs):
-                raise KeyError(f"AdamW {name}: {sorted(set(mine) ^ set(theirs))[:3]} differ")
-            for n, t in mine.items():
-                t.copy_(theirs[n])
-        self.count = int(state["count"])
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+             grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update in place, as ``AdamW.step``."""
+        grads = self._clipped(grads, grad_norm)
+        lr = self.lr(self.count)
+        self.count += 1
+        for n, (mult, wd) in self.hyper.items():
+            g, p, t = grads[n], params[n], self.trace[n]
+            t.mul_(self.momentum).add_(g + wd * p if wd else g)
+            p.add_(t, alpha=-(lr * mult))
+
+
+_OPTIMIZERS = {"adamw": AdamW, "sgd": SGD}
+
+
+def make_optimizer(cfg: Config, params: Dict[str, torch.Tensor],
+                   labels: Dict[str, str]) -> _Optimizer:
+    """``solver.optimizer``'s optimizer over ``params`` with the groups
+    ``labels`` (JAX ``make_optimizer``)."""
+    name = cfg.solver.optimizer.lower()
+    if name not in _OPTIMIZERS:
+        raise ValueError(f"solver.optimizer={cfg.solver.optimizer!r}: expected 'adamw' or 'sgd'")
+    return _OPTIMIZERS[name](cfg, params, labels)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -204,9 +259,9 @@ def step_seed(seed: int, step: int) -> int:
 
 class TrainState:
     """The step, the model's f32 master parameters (frozen ones included) and
-    the AdamW state; updated in place by the step."""
+    the optimizer's state; updated in place by the step."""
 
-    def __init__(self, model: nn.Module, opt: AdamW, step: int = 0):
+    def __init__(self, model: nn.Module, opt: _Optimizer, step: int = 0):
         self.model, self.opt, self.step = model, opt, step
 
     def state_dict(self) -> Dict:

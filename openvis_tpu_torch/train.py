@@ -54,10 +54,10 @@ from openvis_tpu_torch.models.postprocess import inference_video_topk
 from openvis_tpu_torch.models.tracking import apply_track_indices, track_by_embeds
 from openvis_tpu_torch.ops.point_sample import sorted_uniform_points
 from openvis_tpu_torch.parallel.train_step import (
-    AdamW,
     TrainState,
     TrainStep,
     config_labels,
+    make_optimizer,
     stop_frozen_gradients,
 )
 
@@ -193,7 +193,8 @@ def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
     ``bc_loss`` and ``htm_loss``).
 
     The step's ``state`` (``TrainState``: the step count, the model's f32
-    parameters as masters and the AdamW state) is updated in place; frozen
+    parameters as masters and the optimizer's state, AdamW or SGD by
+    ``solver.optimizer``) is updated in place; frozen
     parameters get ``requires_grad=False`` and stay fixed.  Without a
     generator the points come from a stream seeded by (``cfg.seed``, step).
     Under a process group the batch is this process's slice of the global
@@ -210,7 +211,7 @@ def build_train_step(cfg: Config, model: nn.Module, num_text_classes: int,
     bad = [n for n, p in params.items() if p.dtype != torch.float32]
     if bad:
         raise TypeError(f"the train step needs f32 master parameters, got {bad[:3]}")
-    opt = AdamW(cfg, params, labels)
+    opt = make_optimizer(cfg, params, labels)
     return TrainStep(loss_fn, TrainState(model, opt), cfg.seed)
 
 

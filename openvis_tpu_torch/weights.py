@@ -369,8 +369,16 @@ def segmenter_state(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
     ``cfg``'s depths; for ``timm_resnet`` a timm ResNet checkpoint, as the
     ``backbone`` keys alone.  The SimpleBaseline decoder has the CLIP
     embedding head: a checkpoint with a class head (a COCO Mask2Former)
-    leaves it at its init."""
+    leaves it at its init.  Only the deformable pixel decoder's names are
+    read: for ``fpn`` or ``transformer_enc`` it raises, as the JAX package
+    has no reader for a d2 FPN checkpoint (``tools/convert_weights.py``
+    reads the deformable encoder's names alone)."""
     m = cfg.model
+    if m.backbone.name != "timm_resnet" and m.pixel_decoder.name != "msdeform":
+        raise ValueError(
+            f"{path}: no reader of a d2 checkpoint for the {m.pixel_decoder.name!r} pixel "
+            "decoder (the JAX package's tools/convert_weights.py reads only the "
+            "deformable encoder's names); load a flax .msgpack or the port's own checkpoint")
     state = load_torch_state(path)
     if m.backbone.name == "timm_resnet":
         return params_from_flax({"backbone": convert_timm_resnet(state, m.backbone.depth)})

@@ -135,7 +135,7 @@ def test_vision_tower_matches_jax(files, hw):
     vis = model.vision_tower("test-tiny")
     vis.load_state_dict(params_from_flax(tree["visual"]), strict=True)
     x = np.random.RandomState(1).randn(3, *hw, 3).astype(np.float32)
-    ref = np.asarray(_jax_vision().apply({"params": tree["visual"]}, jnp.asarray(x)))
+    ref = np.asarray(jax.jit(_jax_vision().apply)({"params": tree["visual"]}, jnp.asarray(x)))
     with torch.no_grad():
         got = vis(torch.from_numpy(x)).numpy()
         # the block API: embed, blocks 0..2 then 2..4 with taps, finalize
@@ -156,15 +156,16 @@ def test_text_tower_and_dual_clip_match_jax(files):
     for i, n in enumerate((5, 9, 1, 30)):  # EOT (the largest id) ends each prompt
         toks[i, n] = VOCAB - 1
         toks[i, n + 1:] = 0
-    ref = np.asarray(_jax_text().apply({"params": tree["text"]}, jnp.asarray(toks)))
+    ref = np.asarray(jax.jit(_jax_text().apply)({"params": tree["text"]}, jnp.asarray(toks)))
     with torch.no_grad():
         got = _port_text(tree)(torch.from_numpy(toks).long()).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
     shape = dict(SHAPE, vocab_size=VOCAB, context_length=CONTEXT)
     images = rng.randn(2, 64, 64, 3).astype(np.float32)
-    ref = np.asarray(jax_model.CLIP(**shape).apply({"params": tree}, jnp.asarray(images),
-                                                    jnp.asarray(toks)))
+    ref = np.asarray(jax.jit(jax_model.CLIP(**shape).apply)({"params": tree},
+                                                            jnp.asarray(images),
+                                                            jnp.asarray(toks)))
     clip = model.CLIP(**shape)
     clip.load_state_dict(params_from_flax(tree), strict=True)
     with torch.no_grad():

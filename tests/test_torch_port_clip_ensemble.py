@@ -122,7 +122,7 @@ def _masks(rng, t, q, h, w):
 def test_mask_square_boxes_match_jax():
     m = _masks(np.random.RandomState(1), 1, 5, 16, 24)[0]
     boxes, valid = clip_adapter.mask_square_boxes(torch.from_numpy(m))
-    jb, jv = jax_adapter.mask_square_boxes(jnp.asarray(m))
+    jb, jv = jax.jit(jax_adapter.mask_square_boxes)(jnp.asarray(m))
     np.testing.assert_array_equal(boxes.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jv))
     assert valid.tolist() == [True] * 4 + [False]
@@ -141,7 +141,8 @@ def test_roi_crop_matches_jax_and_the_oracle(sr):
                         [3.0, 20.0, 39.0, 56.0]],    # the same, far out at the bottom
                        np.float32)
     got = clip_adapter.roi_crop(torch.from_numpy(img), torch.from_numpy(boxes), 8, sr).numpy()
-    ref = np.asarray(jax_adapter.roi_crop(jnp.asarray(img), jnp.asarray(boxes), 8, sr))
+    jroi = jax.jit(jax_adapter.roi_crop, static_argnums=(2, 3))
+    ref = np.asarray(jroi(jnp.asarray(img), jnp.asarray(boxes), 8, sr))
     np.testing.assert_allclose(got, ref, rtol=0, atol=ORACLE_ATOL)
     for box, crop in zip(boxes, got):
         np.testing.assert_allclose(crop, _np_roi_align(img[0], box, 8, sr), rtol=1e-4,
@@ -149,7 +150,7 @@ def test_roi_crop_matches_jax_and_the_oracle(sr):
     # one image a region (the mask crops)
     per = rng.randn(len(boxes), 24, 36, 1).astype(np.float32)
     got = clip_adapter.roi_crop(torch.from_numpy(per), torch.from_numpy(boxes), 8, sr).numpy()
-    ref = np.asarray(jax_adapter.roi_crop(jnp.asarray(per), jnp.asarray(boxes), 8, sr))
+    ref = np.asarray(jroi(jnp.asarray(per), jnp.asarray(boxes), 8, sr))
     np.testing.assert_allclose(got, ref, rtol=0, atol=ORACLE_ATOL)
     for i, box in enumerate(boxes):
         np.testing.assert_allclose(got[i], _np_roi_align(per[i], box, 8, sr), rtol=1e-4,
@@ -166,8 +167,8 @@ def test_clip_crop_classify_matches_jax(setup):
     kw = dict(input_resolution=64, mask_stride=4, sampling_ratio=2)
     lg, vd = clip_adapter.clip_crop_classify(pvis, torch.from_numpy(frames),
                                              torch.from_numpy(masks), torch.from_numpy(text), **kw)
-    jlg, jvd = jax_adapter.clip_crop_classify(jvis, jnp.asarray(frames), jnp.asarray(masks),
-                                              jnp.asarray(text), **kw)
+    jlg, jvd = jax.jit(lambda f, m, x: jax_adapter.clip_crop_classify(jvis, f, m, x, **kw))(
+        jnp.asarray(frames), jnp.asarray(masks), jnp.asarray(text))
     assert lg.shape == (2, 4, 3) and vd.tolist() == [[True] * 3 + [False]] * 2
     np.testing.assert_array_equal(vd.numpy(), np.asarray(jvd))
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), rtol=0, atol=LOGIT_ATOL)

@@ -60,7 +60,7 @@ def _run_jax(monkeypatch, draw, logits, masks, labels, tmasks, valid, deep):
         losses, _ = jcrit.set_criterion(jax.random.PRNGKey(0), lg, mk, targets, s)
         return losses["total"], losses
 
-    (tot, losses), grads = jax.value_and_grad(total, argnums=(0, 1), has_aux=True)(
+    (tot, losses), grads = jax.jit(jax.value_and_grad(total, argnums=(0, 1), has_aux=True))(
         jnp.asarray(logits), jnp.asarray(masks).astype(masks.dtype))
     return losses, grads
 
@@ -121,13 +121,13 @@ def test_match_and_normalizer_match_jax(monkeypatch):
     tt = ClipTargets(torch.from_numpy(labels), torch.from_numpy(tmasks),
                      torch.from_numpy(valid), torch.ones(B, N, 1, dtype=torch.bool))
     port_draw = lambda b, p: torch.from_numpy(draw(b, p))
-    cost_ref = np.asarray(jcrit.match_costs(jax.random.PRNGKey(0), jnp.asarray(logits[0]),
-                                            jnp.asarray(masks[0]), jt, s_j))
+    cost_ref = np.asarray(jax.jit(lambda lg, mk: jcrit.match_costs(
+        jax.random.PRNGKey(0), lg, mk, jt, s_j))(jnp.asarray(logits[0]), jnp.asarray(masks[0])))
     cost = criterion.match_costs(port_draw, torch.from_numpy(logits[0]),
                                  torch.from_numpy(masks[0]), tt, s_t)
     np.testing.assert_allclose(cost.numpy(), cost_ref, rtol=1e-5, atol=1e-6)
-    ref = np.asarray(jcrit.match(jax.random.PRNGKey(0), jnp.asarray(logits[0]),
-                                 jnp.asarray(masks[0]), jt, s_j))
+    ref = np.asarray(jax.jit(lambda lg, mk: jcrit.match(jax.random.PRNGKey(0), lg, mk, jt, s_j))(
+        jnp.asarray(logits[0]), jnp.asarray(masks[0])))
     got = criterion.match(port_draw, torch.from_numpy(logits[0]), torch.from_numpy(masks[0]),
                           tt, s_t).numpy()
     rows = np.arange(N)

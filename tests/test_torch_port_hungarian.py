@@ -5,6 +5,7 @@ ties may resolve differently."""
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 from scipy.optimize import linear_sum_assignment
 
@@ -60,7 +61,7 @@ def test_plain_matches_jax_batched_hungarian():
     e = rng.randn(4, 2, 30, 16).astype(np.float32)
     e /= np.linalg.norm(e, axis=-1, keepdims=True)
     cost = (1.0 - np.einsum("bqc,bkc->bqk", e[:, 0], e[:, 1])).astype(np.float32)
-    ref = np.asarray(jax_batched_hungarian(jnp.asarray(cost)))
+    ref = np.asarray(jax.jit(jax_batched_hungarian)(jnp.asarray(cost)))
     got = batched_hungarian(torch.from_numpy(cost)).numpy()
     for bi in range(cost.shape[0]):
         np.testing.assert_allclose(_total(cost[bi], got[bi]), _total(cost[bi], ref[bi]), rtol=1e-6)

@@ -46,7 +46,15 @@ from openvis_tpu_torch.models.meta import masqclip
 from openvis_tpu_torch.parallel.train_step import config_labels
 from openvis_tpu_torch.structures import ClipTargets
 from openvis_tpu_torch.utils.image import resize_bicubic_torch_hw, resize_bilinear_torch_hw
-from torch_port_common import flat, jax_labels, one_thread_fixture, point_table, rel, seeded_model
+from torch_port_common import (
+    flat,
+    jax_labels,
+    one_thread_fixture,
+    point_table,
+    rel,
+    seeded_model,
+    step_with_grads,
+)
 
 K, D, B, T, H, W, HID, Q, N, POINTS = 5, 32, 1, 2, 64, 96, 64, 8, 3, 128
 OUT_REL_TO_MAX = 1e-5
@@ -102,13 +110,15 @@ def test_masq_tower_tree_groups_and_resizes_match_jax():
     maps = rng.randn(2, 3, 96, 160).astype(np.float32)
     np.testing.assert_allclose(
         resize_bilinear_torch_hw(torch.from_numpy(maps), (224, 224)).numpy(),
-        np.asarray(jax_image.resize_bilinear_torch_hw(jnp.asarray(maps), (224, 224))),
+        np.asarray(jax.jit(jax_image.resize_bilinear_torch_hw, static_argnums=1)(
+            jnp.asarray(maps), (224, 224))),
         rtol=0, atol=OUT_REL_TO_MAX * np.abs(maps).max())
     frames = rng.rand(2, 40, 72, 3).astype(np.float32)
     got = resize_bicubic_torch_hw(torch.from_numpy(frames).permute(0, 3, 1, 2), (64, 64))
     np.testing.assert_allclose(
         got.permute(0, 2, 3, 1).numpy(),
-        np.asarray(jax_image.resize_bicubic_torch(jnp.asarray(frames), (64, 64))),
+        np.asarray(jax.jit(jax_image.resize_bicubic_torch, static_argnums=1)(
+            jnp.asarray(frames), (64, 64))),
         rtol=0, atol=OUT_REL_TO_MAX)
 
     tower, tree = _tower(3)
@@ -207,12 +217,9 @@ def test_masqclip_forward_loss_gradients_and_adamw_match_jax():
         with torch.no_grad():
             out = model(tbatch["pixels"].reshape(B * T, H, W, 3), T, tbatch["text_feats"])
         step = train.build_train_step(cfg, model, K, device="cpu", draw_points=tdraw)
-        named = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        loss, metrics = step.loss_fn(dict(model.named_parameters()), tbatch, torch.Generator())
-        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(named.items(), grads)}
-        step(tbatch, torch.Generator())
+        # the step's own gradients (zeros where a parameter takes none) and its update
+        metrics, grads = step_with_grads(step, tbatch, torch.Generator())
+        loss = metrics["total_loss"]
     finally:
         torch.backends.mkldnn.enabled = prev
     assert out["clip_logits"].shape == (B, Q, K) and out["base_logits"].shape == (B, Q, 2)

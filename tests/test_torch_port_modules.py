@@ -73,7 +73,7 @@ def test_resize_matches_jax(src, dst):
 
 
 def test_position_encoding_matches_jax():
-    ref = np.asarray(jax_pe2d(6, 10, 32))
+    ref = np.asarray(jax.jit(jax_pe2d, static_argnums=(0, 1, 2))(6, 10, 32))
     np.testing.assert_allclose(position_encoding_2d(6, 10, 32).numpy(), ref, rtol=1e-5, atol=1e-5)
 
 

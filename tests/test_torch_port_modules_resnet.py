@@ -11,7 +11,7 @@ from flax import linen as fnn
 
 from openvis_tpu.models.amp import amp_norm as jax_amp_norm
 from openvis_tpu.models.backbone.resnet import ResNet as JaxResNet
-from openvis_tpu_torch.convert import load_flax_params
+from openvis_tpu_torch.convert import flax_from_state_dict, init_params, load_flax_params
 from openvis_tpu_torch.models import tracking
 from openvis_tpu_torch.models.amp import amp_norm, softmax_f32
 from openvis_tpu_torch.models.backbone.resnet import ResNet
@@ -57,10 +57,13 @@ def test_resnet50_matches_jax(stride_in_1x1, h, w):
     rng = np.random.RandomState(2)
     x = rng.randn(1, h, w, 3).astype(np.float32)
     jm = JaxResNet(depth=50, stride_in_1x1=stride_in_1x1)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
-    params = _randomize(params, rng, keys=("norm",))
+    # the port's seeded init (flax's initializers) as the weights: JAX's init
+    # would compile the trunk once more
+    tm = init_params(ResNet(depth=50, stride_in_1x1=stride_in_1x1), seed=0)
+    params = _randomize(jax.tree.map(jnp.asarray, flax_from_state_dict(tm.state_dict())), rng,
+                        keys=("norm",))
     ref = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
-    tm = load_flax_params(ResNet(depth=50, stride_in_1x1=stride_in_1x1), _np_tree(params))
+    tm = load_flax_params(tm, _np_tree(params))
     with torch.no_grad():
         out = tm(_t(x).permute(0, 3, 1, 2))
     assert sorted(out) == ["res2", "res3", "res4", "res5"]

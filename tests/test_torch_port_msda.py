@@ -9,6 +9,7 @@ kernel run in interpret mode.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import openvis_tpu.ops.msda_pallas as MP
@@ -45,15 +46,15 @@ def _plain(value, shapes, loc, attn):
 ])
 def test_plain_matches_xla_f32(seed, shapes):
     value, loc, attn = _inputs(seed, shapes)
-    ref = np.asarray(ms_deform_attn_xla(
-        jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn)))
+    ref = np.asarray(jax.jit(ms_deform_attn_xla, static_argnums=1)(
+        jnp.asarray(value), tuple(shapes), jnp.asarray(loc), jnp.asarray(attn)))
     np.testing.assert_allclose(_plain(value, shapes, loc, attn), ref, rtol=1e-5, atol=1e-5)
 
 
 def test_plain_matches_fused_pallas_interpret():
     shapes = [(6, 9), (3, 5)]
     value, loc, attn = _inputs(3, shapes)
-    ref = np.asarray(MP._msda_fused.__wrapped__(
+    ref = np.asarray(MP._msda_fused(
         jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn), tuple(shapes),
         interpret=True, rr_lanes=True,
     ))

@@ -260,8 +260,8 @@ def test_openvis_ov_scores_match_jax(tmp_path):
     scores, valid = openvis.openvis_ov_scores(pvis, torch.from_numpy(frames),
                                               torch.from_numpy(logits), torch.from_numpy(text),
                                               **kw)
-    jscores, jvalid = jax_openvis.openvis_ov_scores(jvis, jnp.asarray(frames),
-                                                    jnp.asarray(logits), jnp.asarray(text), **kw)
+    jscores, jvalid = jax.jit(lambda f, m, x: jax_openvis.openvis_ov_scores(jvis, f, m, x, **kw))(
+        jnp.asarray(frames), jnp.asarray(logits), jnp.asarray(text))
     assert scores.shape == (q, K) and valid.tolist() == [True] * 4 + [False]
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
     np.testing.assert_allclose(scores.numpy(), np.asarray(jscores), rtol=0, atol=SCORE_ATOL)
@@ -273,8 +273,9 @@ def test_ov2seg_masqclip_and_the_unported_decoders_raise_their_items():
     tests/test_torch_port_offline.py), and so do OV2Seg, its decoder, its
     timm ResNet and the Swin trunk (tests/test_torch_port_ov2seg*.py,
     tests/test_torch_port_swin*.py), and MasQCLIP with its MasQ tower
-    (tests/test_torch_port_masqclip*.py); the zero-shot decoders raise
-    naming their ROADMAP.md items."""
+    (tests/test_torch_port_masqclip*.py), and the zero-shot decoders with
+    their packed ``object_embed`` head (their parity:
+    tests/test_torch_port_fpn.py)."""
     cfg = openvis_cfg(Config)
     offline = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, meta_architecture="OpenVIS", transformer_decoder=dataclasses.replace(
@@ -294,11 +295,15 @@ def test_ov2seg_masqclip_and_the_unported_decoders_raise_their_items():
     heads = Segmenter(ov2seg.model).predictor.heads
     clip_dim = cfg.model.transformer_decoder.clip_embed_dim
     assert heads.zs_fc2.out_features == clip_dim and heads.object_embed.out_features == 2
-    for name, item in (("frame_zero_shot", "8.8"), ("video_zero_shot", "8.8")):
+    hidden = cfg.model.transformer_decoder.hidden_dim
+    for name, video in (("frame_zero_shot", False), ("video_zero_shot", True)):
         decoder = dataclasses.replace(cfg.model, transformer_decoder=dataclasses.replace(
             cfg.model.transformer_decoder, name=name))
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            Segmenter(decoder)
+        built = Segmenter(decoder)
+        heads = built.predictor.heads
+        assert built.video == video and heads.head == "zero_shot"
+        assert heads.object_embed.layer0.out_features == hidden
+        assert heads.object_embed.layer1.out_features == 2
     for name, trunk in (("timm_resnet", "ResNet"), ("swin", "SwinTransformer")):
         backbone = dataclasses.replace(cfg.model, backbone=dataclasses.replace(
             cfg.model.backbone, name=name))

@@ -82,9 +82,14 @@ def test_plain_sampler_matches_pallas_interpret():
     Pallas dot is a 3-pass bf16 split of f32 (~1e-5 relative)."""
     maps, coords, g = _case(3, p=256)
     value = jnp.asarray(maps.transpose(0, 2, 3, 1))           # (B, H, W, R)
-    fn = lambda v: PSP.point_sample_nhwc_pallas(v, jnp.asarray(coords), interpret=True)
-    out, vjp = jax.vjp(fn, value)
-    dref = np.asarray(vjp(jnp.asarray(g))[0]).transpose(0, 3, 1, 2)
+
+    @jax.jit
+    def ref(v, c, gr):
+        out, vjp = jax.vjp(lambda v: PSP.point_sample_nhwc_pallas(v, c, interpret=True), v)
+        return out, vjp(gr)[0]
+
+    out, dv = ref(value, jnp.asarray(coords), jnp.asarray(g))
+    dref = np.asarray(dv).transpose(0, 3, 1, 2)
     got, dgot = _port(torch.from_numpy(maps), coords, g)
     np.testing.assert_allclose(got, np.asarray(out), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(dgot, dref, rtol=1e-4, atol=1e-4)

@@ -49,8 +49,8 @@ def test_clip_attention_matches_jax(form):
         bias, kw = rng.randn(2, heads, sos + l, sos + l).astype(np.float32), {}
     else:
         bias, kw = rng.randn(2, heads, sos, l).astype(np.float32) * 3, {"sos_q": sos}
-    ref = jax_clip.CLIPAttention(c, heads).apply({"params": tree}, jnp.asarray(x),
-                                                 attn_bias=jnp.asarray(bias), **kw)
+    ref = jax.jit(lambda p, v, b: jax_clip.CLIPAttention(c, heads).apply(
+        {"params": p}, v, attn_bias=b, **kw))(tree, jnp.asarray(x), jnp.asarray(bias))
     with torch.no_grad():
         got = attn(torch.from_numpy(x), attn_bias=torch.from_numpy(bias), **kw)
     assert _rel(got, ref) <= REL_TO_MAX

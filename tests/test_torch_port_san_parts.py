@@ -5,6 +5,7 @@ CPU (exact), and a SAN yaml through the CLI.  Shapes and helpers:
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +27,8 @@ from test_torch_port_san import D, SAN_YAML, tiny_clip  # noqa: F401  (fixtures 
 def test_adaptive_max_pool_matches_jax(src):
     """Exact: both take the maximum of the same window."""
     x = np.random.RandomState(2).randn(2, 3, 5, *src).astype(np.float32)
-    ref = np.asarray(jax_sa.adaptive_max_pool(jnp.asarray(x), (14, 14)))
+    ref = np.asarray(jax.jit(jax_sa.adaptive_max_pool, static_argnums=1)(jnp.asarray(x),
+                                                                         (14, 14)))
     got = side_adapter.adaptive_max_pool(torch.from_numpy(x), (14, 14)).numpy()
     assert got.shape == (2, 3, 5, 14, 14)
     np.testing.assert_array_equal(got, ref)

@@ -306,7 +306,11 @@ def test_plain_k3_on_local_locations_matches_jax_vjp(jitter):
     got = ms_deform_attn_bwd_plain(torch.from_numpy(value), levels, torch.from_numpy(loc),
                                    torch.from_numpy(attn), torch.from_numpy(g),
                                    dcoords=False)[0].numpy()
-    _, vjp = jax.vjp(lambda v: ms_deform_attn_xla(v, levels, jnp.asarray(loc), jnp.asarray(attn)),
-                     jnp.asarray(value))
-    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    @jax.jit
+    def dvalue(v, lc, at, gr):
+        _, vjp = jax.vjp(lambda v: ms_deform_attn_xla(v, levels, lc, at), v)
+        return vjp(gr)[0]
+
+    ref = np.asarray(dvalue(jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn),
+                            jnp.asarray(g)))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())

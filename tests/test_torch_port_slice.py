@@ -97,8 +97,9 @@ BF16_SCORE_ATOL = 0.1
 
 def test_forward_and_eval_match_jax_bf16(setup):
     cfg, jm, params, tm, frames, text = setup
-    pb = jax.tree.map(lambda x: x.astype(jnp.bfloat16), params)
-    fb, xb = jnp.asarray(frames).astype(jnp.bfloat16), jnp.asarray(text).astype(jnp.bfloat16)
+    # the casts under one jit: eagerly each parameter's shape compiles its own
+    pb, fb, xb = jax.jit(lambda *t: jax.tree.map(lambda x: x.astype(jnp.bfloat16), t))(
+        params, jnp.asarray(frames), jnp.asarray(text))
     ref = jax.jit(lambda p, f, x: jm.apply({"params": p}, f, T, x))(pb, fb, xb)
     tb = tm.to(torch.bfloat16)
     frames_b, text_b = torch.from_numpy(frames).bfloat16(), torch.from_numpy(text).bfloat16()

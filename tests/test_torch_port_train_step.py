@@ -54,7 +54,7 @@ from openvis_tpu_torch.parallel.train_step import (
 )
 from openvis_tpu_torch.parallel.train_step import label_params as port_label_params
 from openvis_tpu_torch.structures import ClipTargets
-from torch_port_common import one_thread_fixture
+from torch_port_common import one_thread_fixture, step_with_grads
 
 one_thread = one_thread_fixture()
 
@@ -147,8 +147,10 @@ def run_both(amp: bool):
             new_state, metrics = make_train_step(loss_fn, keep)(state, batch, key)
             return new_state.opt_state[1], new_state.params, metrics
 
-        j_grads, j_params, j_metrics = jax.jit(step_and_grads)(
-            TrainState.create(params, keep), jbatch, jax.random.PRNGKey(1))
+        # the state made inside the jit: its zero moments compile once there
+        j_grads, j_params, j_metrics = jax.jit(
+            lambda p, b, k: step_and_grads(TrainState.create(p, keep), b, k))(
+            params, jbatch, jax.random.PRNGKey(1))
 
     tbatch = {"pixels": torch.from_numpy(pixels), "text_feats": torch.from_numpy(text),
               "targets": ClipTargets(torch.from_numpy(labels), torch.from_numpy(masks),
@@ -160,14 +162,9 @@ def run_both(amp: bool):
     prev = torch.backends.mkldnn.enabled
     torch.backends.mkldnn.enabled = False
     try:
-        # gradients from the loss closure, then the step on the same model
-        loss_fn_t = train.make_loss_fn(cfg, model, K, port_draw)
         step = train.build_train_step(cfg, model, K, device="cpu", draw_points=port_draw)
-        named = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        loss, _ = loss_fn_t(dict(model.named_parameters()), tbatch, torch.Generator())
-        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
         grads64 = {}
-        if not amp:  # the same loss in float64
+        if not amp:  # the same loss in float64, from the weights before the step
             model64 = copy.deepcopy(model).double()
             named64 = {n: p for n, p in model64.named_parameters() if p.requires_grad}
             batch64 = dict(tbatch, pixels=tbatch["pixels"].double(),
@@ -175,7 +172,8 @@ def run_both(amp: bool):
             loss64, _ = train.make_loss_fn(cfg, model64, K, port_draw)(
                 dict(model64.named_parameters()), batch64, torch.Generator())
             grads64 = dict(zip(named64, torch.autograd.grad(loss64, list(named64.values()))))
-        metrics = step(tbatch, torch.Generator())
+        # the step's own gradients and its update
+        metrics, grads = step_with_grads(step, tbatch, torch.Generator())
     finally:
         torch.backends.mkldnn.enabled = prev
     return {

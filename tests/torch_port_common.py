@@ -2,7 +2,8 @@
 intra-op thread a module, the error measures, a flax tree's leaves by path,
 JAX's parameter groups by path, the port's seeded model with random norm
 affines and sampling-offset kernels as one set of weights for both packages,
-a shape-keyed table of criterion points, and the JAX Swin under ``jit``.
+a shape-keyed table of criterion points, one train step with the gradients
+it hands its optimizer, and the JAX Swin under ``jit``.
 JAX is imported only by the helpers that need it."""
 
 from typing import Dict, Iterator, Tuple
@@ -85,6 +86,25 @@ def point_table(rng):
         return table[(b, p)]
 
     return draw
+
+
+def step_with_grads(step, batch, generator):
+    """One call of the port's train step ``step``: (its metrics, the
+    gradients of the trained parameters it hands its optimizer, before the
+    clip).  One differentiation gives both the gradients and the update."""
+    opt, seen = step.state.opt, {}
+    update = opt.step
+
+    def keep(params, grads, grad_norm=None):
+        seen.update((n, g.detach().clone()) for n, g in grads.items())
+        return update(params, grads, grad_norm)
+
+    opt.step = keep
+    try:
+        metrics = step(batch, generator)
+    finally:
+        del opt.step  # the class's method again
+    return metrics, seen
 
 
 def jit_safe_jax_swin(mp: pytest.MonkeyPatch, shapes=((6, 9, 3, 1), (12, 12, 4, 2))) -> None:
