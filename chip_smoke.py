@@ -15,8 +15,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      instantiation each takes
   3. K4 (batched Hungarian) against scipy (total cost) and ``hungarian_plain``
      (the assignment, element for element) at the tracking and matcher
-     shapes, with its plan, each problem's Dijkstra steps, and the wrapper's
-     and the device's time per case
+     shapes (the 200-query matcher's on the block solver), with its plan,
+     each problem's Dijkstra steps, and the wrapper's and the device's time
+     per case
   4. K2 / K3 (MSDA backward) against the plain backward at the train, eval
      and one-level encoder shapes, f32 and bf16, on random locations (K3's
      direct adds for the big levels; the two small ones fit its bins whole),
@@ -181,7 +182,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      (drop path 0), card against CPU; the CLI at 2 clips of 2 frames from a
      stand-in init checkpoint (``_swin_init``) and ``--eval-only``;
      ``san_SwinB`` ``--eval-only`` on its checkpoint; 2 ``brivis_SwinB``
-     stage-2 steps from it and ``--eval-only``
+     stage-2 steps from it and ``--eval-only`` (the three CLIs with the
+     trunk cut to 2 blocks a stage, ``SWIN_CLI_OVERRIDES``)
   19. MasQCLIP as the CLI builds it from
      ``configs/openvoc_ytvis_coco/simplebsl_R50_bs8_12000st.yaml`` with
      ``model.meta_architecture=MasQCLIP`` and the ``video_proposal`` decoder
@@ -209,6 +211,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      ``frame_zero_shot`` and ``video_zero_shot`` segmenters and a full-width
      ``DETRTransformer``; the CLI (8 one-frame clips, 2 steps, ``--resume``
      for a third with SGD's trace restored, ``--eval-only``)
+  21. the Swin-L OpenVIS recipe
+     (``configs/openvoc_ytvis_coco/swin/openvis_swinL_bs16_6000st_ViT-L-336.yaml``:
+     offline OpenVIS over the ``frame_proposal`` head with 200 queries, Swin-L,
+     the ``mask`` adapter's frozen ViT-L/14@336px of phase 18's file): three
+     10x384x640 bf16 single shots as the engine runs them (padded to 16
+     frames, the frame head's logits averaged, no tracking: K1 6 a shot, no
+     K4) with their split (Swin-L trunk, pixel decoder, frame decoder, the
+     rest) and peak, and one 128-frame shot at 480x864 with its peak; the
+     train step at 1x2x480x864 (AdamW, drop path 0.3; K1-K3 6, K4 1 on the
+     block solver for the matcher's (20, 40, 200) costs, K5 30, K6 20 a
+     step) with K4, K5 and K6 on its recorded inputs against the plain
+     versions; Swin-L cut to 2 blocks a stage in f32 at 192x320, a shot and a
+     step, card against CPU; the CLI at 2 clips of 2 frames from a stand-in
+     Swin-L init and ``--eval-only``.  Then ``eval_lvvis.yaml`` (SANOnline over
+     lvvis_val's 1196 classes) ``--eval-only`` on phase 13's checkpoint over a
+     synthetic lvvis_val in the dataset's own layout: the 16,744-prompt
+     text bank's host seconds, the engine's frames/s, the evaluator's host
+     seconds over the 1196 ids, the K1 and K4 launches
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
@@ -216,8 +236,9 @@ engine's whole-video run of phase 10, the CLI's training and eval runs of
 phase 11, the ensemble's run of phase 12, SAN's window, train step,
 engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15,
 the BURST engine and CLI runs of phase 16, the offline paths of phase 17,
-OV2Seg's and the Swin recipes' of phase 18, MasQCLIP's of phase 19 and the
-FPN/SGD path's of phase 20),
+OV2Seg's and the Swin recipes' of phase 18, MasQCLIP's of phase 19, the
+FPN/SGD path's of phase 20 and the Swin-L OpenVIS and LV-VIS paths' of phase
+21),
 its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
@@ -323,6 +344,9 @@ HUNGARIAN_CASES = {  # name -> (batch, rows, cols)
     "integer_ties": (9, 100, 100),
     # the matcher: 10 decoder layers x 2 frames, one launch
     "matcher_uniform": (20, 40, 100),
+    # the Swin-L OpenVIS recipe's matcher (200 queries, phase 21): 201
+    # columns, above the warp solver's, so the block solver
+    "matcher_200_queries": (20, 40, 200),
 }
 CHECK_FRAMES = 2     # phase 7 window
 TIMING_ITERS = 20
@@ -550,6 +574,10 @@ SWIN_OVERRIDES = ("model.weights=",)
 SWIN_WINDOW_H, SWIN_WINDOW_W = 480, 864   # min_size_test 480 on the 480x864 canvas
 # the CLI as the reference trains it a card: 16 clips over 8 GPUs, 2 a card
 SWIN_CLI_CLIPS, SWIN_CLI_STEPS = 2, 2
+# phase 18's Swin-B CLIs (SAN online, san_SwinB, BriVIS) run the trunk cut to
+# 2 blocks a stage (its widths, heads and windows kept): the full depth runs
+# in 18.8-18.9 and in phase 21's Swin-L CLI
+SWIN_CLI_OVERRIDES = ("model.backbone.swin_depths=[2,2,2,2]",)
 # phase 19: MasQCLIP as the CLI builds it from the offline SimpleBaseline
 # recipe, over the video proposal decoder (JAX tests/test_engine.py:249)
 MASQ_OVERRIDES = ("model.meta_architecture=MasQCLIP",
@@ -579,6 +607,24 @@ FPN_CHECK_LR = 1.0
 # the segmenter (~60 layers) or the DETR transformer (12 layers)
 ZERO_SHOT_REL_TO_MAX = 1e-3
 DETR_REL_TO_MAX = 1e-4
+# phase 21: the Swin-L OpenVIS recipe (offline OpenVIS over the frame_proposal
+# head with 200 queries; Swin-L: embed 192, depths 2-2-18-2, heads 6-12-24-48,
+# windows of 12; at eval the mask adapter's frozen ViT-L/14@336px, phase 18's
+# file), evaluated single-shot as the engine runs the offline archs; then
+# eval_lvvis.yaml (SANOnline over lvvis_val's 1196 classes) through the CLI
+OPENVIS_SWINL_CONFIG = os.path.join(SWIN_DIR, "openvis_swinL_bs16_6000st_ViT-L-336.yaml")
+LVVIS_CONFIG = os.path.join("configs", "openvoc_ytvis_coco", "eval_lvvis.yaml")
+LVVIS_DATASET = "lvvis_val"
+# synthetic LV-VIS val videos at its common 720x1280 and 480x640 (instances of
+# the 1196 categories), written in lvvis_val's own layout
+LVVIS_VIDEOS = ((720, 1280, 24, 3), (480, 640, 19, 2))
+# the f32 card-against-CPU check: Swin-L's widths, heads and windows, cut to
+# 2 blocks a stage, drop path 0
+SWINL_CHECK_OVERRIDES = ("model.backbone.swin_depths=[2,2,2,2]",
+                         "model.backbone.swin_drop_path_rate=0.0")
+SWINL_TRAINED = ("segmenter.backbone.stage2_block17.attn.relative_position_bias_table",
+                 "segmenter.backbone.patch_embed.weight",
+                 "segmenter.predictor.heads.class_embed.weight")
 
 
 _START = time.perf_counter()
@@ -1983,9 +2029,7 @@ def _write_engine_dataset(root):
     each ``root``: the engine reads the same files."""
     global _ENGINE_DATA
     if _ENGINE_DATA is None:
-        ytvis19 = catalog.get("ytvis_2019_val")
-        cats = [{"id": cid, "name": ytvis19.thing_classes[i]}
-                for cid, i in ytvis19.id_map.items()]
+        cats = catalog.category_table("ytvis_2019_val")
         src = tempfile.mkdtemp(prefix="chip_smoke_engine_data_")
         atexit.register(shutil.rmtree, src, True)
         t0 = time.perf_counter()
@@ -2339,8 +2383,7 @@ def phase_ensemble(card: str, clip):
 def _cli_data(root):
     """The synthetic train and eval sets, registered; returns the config
     overrides that point the recipe at them (its CLIP files apart)."""
-    ytvis19 = catalog.get("ytvis_2019_val")
-    cats = [{"id": cid, "name": ytvis19.thing_classes[i]} for cid, i in ytvis19.id_map.items()]
+    cats = catalog.category_table("ytvis_2019_val")
     names = ("synthetic_ytvis_2019_train", "synthetic_coco_train", "synthetic_ytvis_2019_eval")
     infos = (
         dataclasses.replace(synthetic.write_ytvis_dataset(root, "ytvis_train", CLI_TRAIN_VIDEOS,
@@ -4118,10 +4161,10 @@ def _offline_config(config, clip, *overrides):
                                 f"model.clip_adapter.bpe_vocab={clip[1]}", *overrides])
 
 
-def _timed_shots(model, cfg, clips, text):
-    """Three timed shots of ``train.make_eval_fn`` (after a warm-up): (outputs,
-    ms a shot, peak GiB, launches)."""
-    eval_fn = train.make_eval_fn(cfg, model)
+def _timed_shots(model, cfg, clips, text, eval_fn=None):
+    """Three timed shots of ``eval_fn`` (``train.make_eval_fn``'s unless
+    given) after a warm-up: (outputs, ms a shot, peak GiB, launches)."""
+    eval_fn = eval_fn or train.make_eval_fn(cfg, model)
     eval_fn(clips[0], text)  # warm-up: cuDNN autotuning, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4135,6 +4178,34 @@ def _timed_shots(model, cfg, clips, text):
     launches = read_counts()
     return (outs, start.elapsed_time(end) / len(clips),
             torch.cuda.max_memory_allocated() / 2 ** 30, launches)
+
+
+def _cap_shot(eval_fn, text, q, k, where):
+    """The single-shot cap: one shot of test.max_frames = 128 frames on the
+    480x864 canvas every test video is padded to, through ``eval_fn``, cold
+    then warm; its outputs checked (``q`` queries, ``k`` classes).  Returns
+    the reading (ms cold and warm, frames/s, peak GiB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    frames = torch.randn(OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W, 3, generator=gen,
+                         device=DEVICE).to(torch.bfloat16)
+    ms = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = eval_fn(frames, text)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_outputs(out, q, k, OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W, where)
+    del frames, out
+    torch.cuda.empty_cache()
+    return {"frames": OFFLINE_CAP_T, "frame_hw": [OFFLINE_CAP_H, OFFLINE_CAP_W],
+            "ms_cold_warm": ms, "frames_per_s": OFFLINE_CAP_T / (ms[1] / 1e3),
+            "peak_mem_gib": peak}
 
 
 def _random_clips(rng, n, t, h, w):
@@ -4170,36 +4241,16 @@ def phase_offline_shot(card, cfg):
     enc = cfg.model.pixel_decoder.transformer_enc_layers
     expected = {**{k: 0 for k in launches}, "msda_fwd": enc * NUM_WINDOWS}
     del outs, clips
-    # the single-shot cap: 128 frames on the canvas every test video is padded to
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    cap = torch.randn(OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W, 3, generator=gen,
-                      device=DEVICE).to(torch.bfloat16)
-    eval_fn = train.make_eval_fn(cfg, model)
-    cap_ms = []
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = eval_fn(cap, text)
-        end.record()
-        torch.cuda.synchronize()
-        cap_ms.append(start.elapsed_time(end))
-    cap_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _check_outputs(out, q, K_CLASSES, OFFLINE_CAP_T, OFFLINE_CAP_H, OFFLINE_CAP_W, "offline cap")
+    cap = _cap_shot(train.make_eval_fn(cfg, model), text, q, K_CLASSES, "offline cap")
     tokens = OFFLINE_CAP_T * (OFFLINE_CAP_H // 8) * (OFFLINE_CAP_W // 8)
     emit({"phase": "offline_shot_full_width", "config": OFFLINE_CONFIG, "dtype": "bfloat16",
           "shots": NUM_WINDOWS, "frames_per_shot": t, "frame_hw": [h, w], "ms_per_shot": ms,
           "frames_per_s": t / (ms / 1e3), "split_ms_per_shot": split, "peak_mem_gib": peak,
           "launches": launches, "expected_launches": expected,
-          "cap_shot": {"frames": OFFLINE_CAP_T, "frame_hw": [OFFLINE_CAP_H, OFFLINE_CAP_W],
-                       "ms_cold_warm": cap_ms, "frames_per_s": OFFLINE_CAP_T / (cap_ms[1] / 1e3),
-                       "level2_tokens": tokens, "peak_mem_gib": cap_peak},
-          "card": card})
+          "cap_shot": {**cap, "level2_tokens": tokens}, "card": card})
     if launches != expected:
         raise AssertionError(f"offline shot launches {launches} != {expected}")
-    del cap, out, model
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -4497,9 +4548,7 @@ def phase_video_maskformer_minvis(card):
                           CHECK_TRAIN_H, CHECK_TRAIN_W)
     root = tempfile.mkdtemp(prefix="chip_smoke_minvis_")
     try:
-        ytvis19 = catalog.get("ytvis_2019_val")
-        cats = [{"id": cid, "name": ytvis19.thing_classes[i]}
-                for cid, i in ytvis19.id_map.items()]
+        cats = catalog.category_table("ytvis_2019_val")
         name = _write_check_video(root, cats)
         base = _check_config(minvis, root, name)
         model = init_params(train.build_model(base, device="cpu"), seed=SEED + 3)
@@ -4787,11 +4836,16 @@ def phase_ov2seg(card, clip):
     return launches
 
 
-def write_swin_clip_file(root):
-    """Random ViT-L/14@336px weights in OpenAI's key layout (f16, from the seed)."""
+def write_swin_clip_file(root, clip):
+    """Random ViT-L/14@336px weights in OpenAI's key layout (f16, from the
+    seed) under ``root``, written once for phases 18 and 21; returns the CLIP
+    files (weights, ``clip``'s merge file)."""
+    t0 = time.perf_counter()
     weights = os.path.join(root, "ViT-L-14-336px.pt")
     torch.save(clip_synthetic.openai_state_dict(SWIN_CLIP, seed=SEED), weights)
-    return weights
+    emit({"phase": "swin_clip_files", "clip": SWIN_CLIP, "seconds": time.perf_counter() - t0,
+          "bytes": os.path.getsize(weights)})
+    return weights, clip[1]
 
 
 def _swin_config(clip, *overrides):
@@ -4921,9 +4975,10 @@ def phase_swin_vs_plain(clip):
                              "segmenter.backbone.patch_embed.weight"))
 
 
-def _swin_init(root, cfg):
-    """A port checkpoint directory that stands in for the recipe's Mask2Former
-    Swin-B init (``pretrained/m2f_swinB.msgpack``, not in the repository):
+def _swin_init(root, cfg, name="swin_init"):
+    """A port checkpoint directory ``root/name`` that stands in for the
+    recipe's Mask2Former Swin init (``pretrained/m2f_swinB.msgpack``,
+    ``m2f_swinL.msgpack``; neither is in the repository):
     the segmenter from the seed with the trunk's biases drawn N(0, 0.02), as
     a trained trunk's are nonzero.  With every bias zero, a window of padded
     (zero) pixels stays exactly zero through the trunk, and each LayerNorm's
@@ -4935,37 +4990,37 @@ def _swin_init(root, cfg):
         for name, p in seg.backbone.named_parameters():
             if name.endswith("bias"):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
-    path = os.path.join(root, "swin_init")
+    path = os.path.join(root, name)
     save_checkpoint(path, 0, {"step": 0, "params": {f"segmenter.{n}": p for n, p
                                                     in seg.state_dict().items()}})
     return path
 
 
-def phase_swin(card, clip, clip_dir):
-    """Phase 18b: the SAN Swin-B recipes with a random ViT-L/14@336px written
-    under ``clip_dir`` (``clip``'s merge file); returns the paths' launch
-    counts by name."""
+def phase_swin(card, clip, big, clip_dir):
+    """Phase 18b: the SAN Swin-B recipes with the random ViT-L/14@336px
+    ``big`` (``write_swin_clip_file``; ``clip``: phase 11's files); the CLIs
+    at SWIN_CLI_OVERRIDES' depth.  Returns the paths' launch counts by
+    name."""
     import train_net_torch as cli
 
-    t0 = time.perf_counter()
-    big = (write_swin_clip_file(clip_dir), clip[1])
     cfg = _swin_config(big)
     tree = cli.read_clip(cfg)
-    emit({"phase": "swin_clip_files", "clip": SWIN_CLIP, "seconds": time.perf_counter() - t0,
-          "bytes": os.path.getsize(big[0])})
     launches = {"san_swin_eval": phase_swin_window(card, cfg, tree)}
     launches["san_swin_train"] = phase_swin_train(card, cfg, tree)
     del tree
     phase_swin_vs_plain(clip)
     stage1 = os.path.join(clip_dir, "san_swin_checkpoints")
     clips = f"solver.ims_per_batch={SWIN_CLI_CLIPS}"
-    init = f"model.weights={_swin_init(clip_dir, cfg)}"
+    init = f"model.weights={_swin_init(clip_dir, _swin_config(big, *SWIN_CLI_OVERRIDES))}"
     launches["san_swin_cli_train"], launches["san_swin_cli_eval"] = _recipe_cli(
-        card, big, SAN_SWIN_CONFIG, SWIN_CLI_STEPS, "san_swin", stage1, (init, clips))
+        card, big, SAN_SWIN_CONFIG, SWIN_CLI_STEPS, "san_swin", stage1,
+        (init, clips, *SWIN_CLI_OVERRIDES))
     launches["san_swin_offline_cli_eval"] = phase_san_offline_cli(
-        card, big, stage1, SAN_SWIN_OFFLINE_CONFIG, "san_swin_offline", SWIN_OVERRIDES)
+        card, big, stage1, SAN_SWIN_OFFLINE_CONFIG, "san_swin_offline",
+        SWIN_OVERRIDES + SWIN_CLI_OVERRIDES)
     launches["brivis_swin_cli_train"], launches["brivis_swin_cli_eval"] = phase_brivis_cli(
-        card, big, stage1, BRIVIS_SWIN_CONFIG, "brivis_swin", SWIN_CLI_STEPS, (clips,))
+        card, big, stage1, BRIVIS_SWIN_CONFIG, "brivis_swin", SWIN_CLI_STEPS,
+        (clips, *SWIN_CLI_OVERRIDES))
     return launches
 
 
@@ -5541,6 +5596,248 @@ def phase_fpn(card, clip):
     return launches
 
 
+def _swinl_config(clip, *overrides):
+    """The Swin-L OpenVIS recipe with the CLIP files ``clip`` (weights, bpe);
+    its ``pretrained/m2f_swinL.msgpack`` is not in the repository."""
+    return _offline_config(OPENVIS_SWINL_CONFIG, clip, *SWIN_OVERRIDES, *overrides)
+
+
+def phase_swinl_shot(card, cfg):
+    """21.1 / 21.2: the Swin-L OpenVIS recipe's model (random weights from the
+    seed, bf16) through the engine's single shot (``_single_shot_eval``: the
+    clip padded to ``_bucket(t)`` frames, the frame head's logits averaged
+    over the real ones, the objectness top-k; no tracking): three 10x384x640
+    shots with their split (Swin-L trunk, pixel decoder, frame decoder, the
+    rest) and peak; then one shot of test.max_frames = 128 frames on the
+    480x864 canvas of the recipe's min_size_test (cold, then warm) with its
+    peak.  Returns the launches of the three shots.  ``train.make_eval_fn``
+    would take its tracking branch for a frame decoder, as the JAX
+    package's does; the engine evaluates the OpenVIS arch single-shot."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
+        dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED)
+    t, h, w = WINDOW_FRAMES, FRAME_H, FRAME_W
+    clips = _random_clips(rng, NUM_WINDOWS, t, h, w)
+    text = torch.from_numpy(_text(rng)).to(DEVICE, torch.bfloat16)
+    shot = _single_shot_eval(cfg)(model, DEVICE)
+    outs, ms, peak, launches = _timed_shots(model, cfg, clips, text, shot)
+    seg = model.segmenter
+    with StageSpans({"swin_trunk": (seg.backbone, "forward"),
+                     "pixel_decoder": (seg.pixel_decoder, "forward"),
+                     "frame_decoder": (seg.predictor, "forward")}) as spans:
+        timed = spans.window(shot)
+        for x in clips:
+            timed(x, text)
+    split = spans.split_ms("scores_topk_rest", NUM_WINDOWS)
+    q = cfg.model.transformer_decoder.num_queries
+    for i, out in enumerate(outs):
+        _check_outputs(out, q, 1, t, h, w, f"Swin-L OpenVIS shot {i}")
+    expected = {**{k: 0 for k in launches}, "msda_fwd": _msda_layers(cfg) * NUM_WINDOWS}
+    del outs, clips
+    cap = _cap_shot(shot, text, q, 1, "Swin-L OpenVIS cap")
+    emit({"phase": "openvis_swinl_shot_full_width", "config": OPENVIS_SWINL_CONFIG,
+          "dtype": "bfloat16", "queries": q, "shots": NUM_WINDOWS, "frames_per_shot": t,
+          "padded_to": engine._bucket(t), "frame_hw": [h, w], "ms_per_shot": ms,
+          "frames_per_s": t / (ms / 1e3), "split_ms_per_shot": split, "peak_mem_gib": peak,
+          "launches": launches, "expected_launches": expected,
+          "cap_shot": cap, "params": sum(p.numel() for p in model.parameters()),
+          "card": card})
+    if launches != expected:
+        raise AssertionError(f"Swin-L OpenVIS shot launches {launches} != {expected}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_swinl_train(card, cfg):
+    """21.3: the Swin-L OpenVIS train step at 1x2x480x864 (N=40, bf16 AMP, f32
+    masters, AdamW, the recipe's drop path 0.3 drawn from the step's
+    generator): one warm-up and three timed steps, the launches (K1-K3 6 a
+    step, K4 once: the per-frame matcher's (20, 40, 200) problems, on the
+    block solver; K5 and K6 by call shape), the trunk's LayerNorms fixed and
+    its bias tables, patch embedding and the objectness head moved; K4, K5
+    and K6 on the warm-up step's recorded inputs against their plain
+    versions.  Returns the launches of the timed steps."""
+    model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith("segmenter.backbone.") and "norm" in n}
+    trained = {n: p for n, p in model.named_parameters() if n in SWINL_TRAINED}
+    before = {n: p.detach().clone() for n, p in trained.items()}
+    step = train.build_train_step(cfg, model, K_CLASSES, device=DEVICE)
+    batch = _train_batch(np.random.RandomState(SEED), TRAIN_H, TRAIN_W, TRAIN_N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with HungarianRecorder() as k4_rec, SamplerInputs() as s_rec:
+        step(batch, gen)  # warm-up: cuDNN autotuning, allocator; its inputs recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with SamplerShapes() as shapes:
+        reset_counts()
+        start.record()
+        metrics = [step(batch, gen) for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    expected = _train_launches(cfg, TRAIN_H, TRAIN_W, TRAIN_STEPS)
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    params = dict(model.named_parameters())
+    fixed = all(torch.equal(params[n], v) for n, v in frozen.items())
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in trained.items()}
+    k4_shapes = sorted({tuple(c.shape) for c in k4_rec.costs})
+    plans = [_k4_plan(n, m, b) for b, n, m in k4_shapes]
+    emit({"phase": "openvis_swinl_train_full_width", "config": OPENVIS_SWINL_CONFIG,
+          "dtype": "bf16 AMP, f32 masters", "optimizer": cfg.solver.optimizer,
+          "drop_path_rate": cfg.model.backbone.swin_drop_path_rate,
+          "queries": cfg.model.transformer_decoder.num_queries,
+          "batch": [1, TRAIN_T, TRAIN_H, TRAIN_W], "targets": TRAIN_N,
+          "points": cfg.model.criterion.train_num_points, "steps": TRAIN_STEPS,
+          "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": values, "launches": launches, "expected_launches": expected,
+          "k4_costs": [list(c) for c in k4_shapes], "k4_plan": plans,
+          "k5_launches_by_shape": {str(k): v for k, v in shapes.counts.items()},
+          "frozen_params": len(frozen), "frozen_bit_equal": fixed, "trained_moved": moved,
+          "card": card})
+    if launches != expected:
+        raise AssertionError(f"Swin-L OpenVIS train launches {launches} != {expected}")
+    if k4_shapes != [(TRAIN_T * (cfg.model.transformer_decoder.dec_layers + 1), TRAIN_N,
+                      cfg.model.transformer_decoder.num_queries)] \
+            or [p["variant"] for p in plans] != ["block"]:
+        raise AssertionError(f"the Swin-L matcher's K4 costs {k4_shapes} did not take the "
+                             f"block solver: {plans}")
+    if not all(np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a Swin-L OpenVIS train-step loss or grad norm is not finite")
+    if not fixed or not all(moved.values()) or len(moved) != len(SWINL_TRAINED):
+        raise AssertionError(f"a frozen parameter changed or a trained one did not: {moved}")
+    _hold_k4_k5_k6("openvis_swinl_train", k4_rec, s_rec, k4_calls=1)
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_swinl_vs_plain(clip):
+    """21.4: the Swin-L OpenVIS model in f32, card against CPU, at 192x320 with
+    Swin-L's widths, heads and windows cut to 2 blocks a stage (drop path 0):
+    the engine's single shot of 5 frames padded to 8 (phase 7's bounds) and
+    one train step (phase 9's; the CPU's loss takes the card's assignments,
+    the block solver's on (16, 8, 200) costs)."""
+    cfg = _swinl_config(clip, *SWINL_CHECK_OVERRIDES)
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, test=dataclasses.replace(cfg.model.test, amp=False)),
+        solver=dataclasses.replace(cfg.solver, amp=False))
+    cpu_model = init_params(train.build_model(f32, device="cpu"), seed=SEED + 1)
+    _hold_window_to_plain("openvis_swinl_kernels_vs_plain", f32, cpu_model, CHECK_TRAIN_H,
+                          CHECK_TRAIN_W, make_eval=_single_shot_eval(f32),
+                          frames=OFFLINE_CHECK_T, kernels=("msda_fwd",))
+    cpu_model = _offsets_off_centres(
+        init_params(train.build_model(f32, device="cpu"), seed=SEED + 2), SEED + 2)
+    _hold_train_to_plain("openvis_swinl_train_kernels_vs_plain", f32, cpu_model,
+                         TRAIN_CHECK_PARAMS + (
+                             "segmenter.backbone.stage3_block1.attn.relative_position_bias_table",
+                             "segmenter.backbone.patch_embed.weight",
+                             "segmenter.predictor.heads.class_embed.weight"))
+
+
+def phase_lvvis(card, clip, stage1):
+    """21.6: ``train_net_torch.py --eval-only`` with ``eval_lvvis.yaml``
+    (SANOnline over lvvis_val's 1196 classes) on phase 13's SANOnline
+    checkpoint ``stage1``, over a synthetic lvvis_val written in the
+    dataset's own layout (``lvvis/val/JPEGImages``,
+    ``lvvis/val_ytvis_style.json``) with the LV-VIS category table, so that
+    the recipe's dataset name resolves unchanged: the host seconds of the
+    16,744-prompt text bank, the engine's frames/s and split, the
+    evaluator's host seconds over the 1196 ids, the K1 and K4 launches.
+    Returns the launches."""
+    import train_net_torch as cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lvvis_")
+    banks, walls = [], []
+    encode, evaluate = cli.TextEmbeddingBank.encode, engine.evaluate_dataset
+
+    def timed_encode(bank, names):
+        t0 = time.perf_counter()
+        out = encode(bank, names)
+        banks.append({"classes": len(names), "prompts": len(names) * len(bank.templates),
+                      "host_s": time.perf_counter() - t0})
+        return out
+
+    def timed_evaluate(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            walls.append(time.perf_counter() - t0)
+
+    cli.TextEmbeddingBank.encode, engine.evaluate_dataset = timed_encode, timed_evaluate
+    try:
+        info = catalog.get(LVVIS_DATASET)
+        t0 = time.perf_counter()
+        synthetic.write_ytvis_dataset(root, info.name, LVVIS_VIDEOS,
+                                      catalog.category_table(info.name), seed=SEED, layout=info)
+        write_s = time.perf_counter() - t0
+        out = os.path.join(root, "out")
+        common = [f"datasets.root={root}", f"model.clip_adapter.weights={clip[0]}",
+                  f"model.clip_adapter.bpe_vocab={clip[1]}", f"output_dir={out}"]
+        cfg = load_config(LVVIS_CONFIG, common)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with EngineSpans() as spans:
+            t0 = time.perf_counter()
+            cli.main(["--config-file", LVVIS_CONFIG, "--eval-only", "--weights", stage1,
+                      *common])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(out, f"metrics_{info.name}.json")) as f:
+            metrics = json.load(f)
+        with open(os.path.join(out, f"results_{info.name}.json")) as f:
+            results = json.load(f)
+        expected = _engine_expected(cfg, launches, LVVIS_VIDEOS)
+        wall = walls[0] if walls else float("nan")
+        emit({"phase": "lvvis_cli_eval", "config": LVVIS_CONFIG, "dataset": info.name,
+              "classes": len(info.thing_classes), "videos_hwtn": LVVIS_VIDEOS,
+              "weights": "phase 13's SANOnline CLI checkpoint", "text_bank": banks,
+              "metrics": metrics, "predictions": len(results),
+              "categories_predicted": len({r["category_id"] for r in results}),
+              "engine_wall_s": wall, "frames": spans.frames,
+              "frames_per_s": spans.frames / wall, "split_s": _engine_split(spans, wall),
+              "evaluator_host_s": spans.host["finalize"],
+              "ytvos_accumulate_host_s": spans.host["ytvos_accumulate"],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "cli_s": cli_s, "dataset_write_s": write_s, "launches": launches,
+              "expected_launches": expected, "card": card})
+        if launches != expected:
+            raise AssertionError(f"LV-VIS CLI eval launches {launches} != {expected}")
+        if [b["classes"] for b in banks] != [len(info.thing_classes)] or len(walls) != 1:
+            raise AssertionError(f"the LV-VIS bank encoded {banks}, the engine ran {walls}")
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()) or not results \
+                or not {r["category_id"] for r in results} <= set(info.id_map):
+            raise AssertionError(f"the LV-VIS eval wrote {metrics}, {len(results)} results")
+        return launches
+    finally:
+        cli.TextEmbeddingBank.encode, engine.evaluate_dataset = encode, evaluate
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_swinl(card, clip, big, clip_dir, stage1):
+    """Phase 21: the Swin-L OpenVIS recipe over the random ViT-L/14@336px
+    ``big`` (phase 18's file) and eval_lvvis.yaml on phase 13's SANOnline
+    checkpoint ``stage1``; returns the paths' launch counts by name."""
+    t0 = time.perf_counter()
+    cfg = _swinl_config(big)
+    launches = {"openvis_swinl_eval": phase_swinl_shot(card, cfg)}
+    launches["openvis_swinl_train"] = phase_swinl_train(card, cfg)
+    phase_swinl_vs_plain(big)
+    init = f"model.weights={_swin_init(clip_dir, cfg, 'swinl_init')}"
+    launches["openvis_swinl_cli_train"], launches["openvis_swinl_cli_eval"] = _recipe_cli(
+        card, big, OPENVIS_SWINL_CONFIG, SWIN_CLI_STEPS, "openvis_swinl",
+        overrides=(init, f"solver.ims_per_batch={SWIN_CLI_CLIPS}"))
+    launches["lvvis_cli_eval"] = phase_lvvis(card, clip, stage1)
+    emit({"phase": "swinl_lvvis_done", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     try:
         return _main()
@@ -5583,9 +5880,11 @@ def _main() -> int:
         burst_launches = phase_burst(card, clip, stage1)
         offline_launches = phase_offline(card, clip, stage1)
         ov2seg_launches = phase_ov2seg(card, clip)
-        swin_launches = phase_swin(card, clip, clip_dir)
+        big = write_swin_clip_file(clip_dir, clip)
+        swin_launches = phase_swin(card, clip, big, clip_dir)
         masq_launches, masq_recorded = phase_masqclip(card, clip)
         fpn_launches = phase_fpn(card, clip)
+        swinl_launches = phase_swinl(card, clip, big, clip_dir, stage1)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in (*cli_recorded.items(), *masq_recorded.items()):
@@ -5616,7 +5915,8 @@ def _main() -> int:
                               **{path: n[name] for path, n in ov2seg_launches.items()},
                               **{path: n[name] for path, n in swin_launches.items()},
                               **{path: n[name] for path, n in masq_launches.items()},
-                              **{path: n[name] for path, n in fpn_launches.items()}},
+                              **{path: n[name] for path, n in fpn_launches.items()},
+                              **{path: n[name] for path, n in swinl_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -65,6 +65,14 @@ def list_datasets() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def category_table(name: str) -> List[dict]:
+    """The registered dataset ``name``'s categories as a json's
+    ``categories`` (``id``, ``name``), in id order."""
+    info = get(name)
+    return [{"id": cid, "name": info.thing_classes[i]}
+            for cid, i in sorted(info.id_map.items())]
+
+
 def burst_class_splits() -> Dict[str, List[int]]:
     """LVIS-id class splits for BURST metric reporting: "common" = the
     COCO-overlapping known classes, "uncommon" = the rest (the reference's

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -56,14 +56,18 @@ def write_ytvis_dataset(
     videos: Sequence[Tuple[int, int, int, int]],
     categories: List[Dict],
     seed: int = 0,
+    layout: Optional[DatasetInfo] = None,
 ) -> DatasetInfo:
     """Write ``videos`` ((height, width, frames, instances) each) under
     ``root/name`` and return the dataset's ``DatasetInfo`` (not registered).
-    Instances get categories drawn from ``categories`` (``id``, ``name``)."""
+    Instances get categories drawn from ``categories`` (``id``, ``name``).
+    With ``layout`` (a registered dataset's ``DatasetInfo``) the frames and
+    the json go to its ``image_root`` and ``json_file`` under ``root``
+    instead, so that a recipe's dataset name resolves unchanged."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
-    image_root = os.path.join(name, "JPEGImages")
+    image_root = layout.image_root if layout else os.path.join(name, "JPEGImages")
     js = {"videos": [], "annotations": [], "categories": list(categories)}
     cat_ids = [c["id"] for c in categories]
     ann_id = 0
@@ -97,7 +101,7 @@ def write_ytvis_dataset(
                 "segmentations": segs[j], "bboxes": bbox,
                 "areas": [float(boxes[j][0] * boxes[j][1])] * t, "iscrowd": 0,
             })
-    json_file = os.path.join(name, "annotations.json")
+    json_file = layout.json_file if layout else os.path.join(name, "annotations.json")
     with open(os.path.join(root, json_file), "w") as fh:
         json.dump(js, fh)
     return DatasetInfo(

@@ -4,8 +4,9 @@ GPU, through their wrappers and on the device alone.
 
     python3 tools/torch_bench_k4_k5.py [--rounds 3] [--iters 100] [--label NAME]
 
-K4 runs ``chip_smoke.py``'s four cases (tracking 9x100x100 on uniform,
-cosine and integer-tie costs; the matcher's 20x40x100), each held against
+K4 runs ``chip_smoke.py``'s cases (tracking 9x100x100 on uniform, cosine
+and integer-tie costs; the matcher's 20x40x100 on the warp solver and the
+200-query matcher's 20x40x200 on the block solver), each held against
 scipy's optimal cost and, element for element, against ``hungarian_plain``'s
 assignment, with each problem's Dijkstra steps where the checkout's
 ``hungarian_plain`` counts them. K5 runs the train step's three call shapes
