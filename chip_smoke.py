@@ -229,6 +229,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      synthetic lvvis_val in the dataset's own layout: the 16,744-prompt
      text bank's host seconds, the engine's frames/s, the evaluator's host
      seconds over the 1196 ids, the K1 and K4 launches
+  22. the mask-adapted CLIP towers: phase 15's three 10x384x640 bf16
+     OpenVISOnline windows with ``model.clip_adapter.name=adapted`` (the
+     mask-prompted ViT-B/16 of phase 11's file with a nonzero
+     ``visual.mask_embedding``), their split printed beside phase 15's plain
+     tower's, K1 on the first encoder layer's recorded inputs against its
+     plain version; that window in f32 at 192x320, card against CPU (the
+     test-tiny mask-prompted tower); SimpleBaselineOnline's ensemble with
+     ``bg_adapted`` through the engine over phase 10's second video (K4 on
+     its tracking costs against ``hungarian_plain``) and ``--eval-only`` of
+     the recipe with that override over the same video; random RN50 and
+     RN101 files in OpenAI's layout read by the port's reader: each tower's
+     ms and TFLOP/s on a frame's 100 bf16 crops at 224, unmasked and masked
+     (a quarter of the crops covered whole: NaN rows, as in JAX), in f32 on
+     8 crops card against CPU with the NaN rows equal; RN50 as ``bg_adapted``
+     through the ensemble engine, the segmenter's text width 1024
 
 The line before the last lists every kernel with its launches on the train
 path (phase 8; ``launches_by_path`` adds the eval path of phase 6, the
@@ -237,8 +252,8 @@ phase 11, the ensemble's run of phase 12, SAN's window, train step,
 engine and CLI runs of phase 13, BriVIS's of phase 14, OpenVIS's of phase 15,
 the BURST engine and CLI runs of phase 16, the offline paths of phase 17,
 OV2Seg's and the Swin recipes' of phase 18, MasQCLIP's of phase 19, the
-FPN/SGD path's of phase 20 and the Swin-L OpenVIS and LV-VIS paths' of phase
-21),
+FPN/SGD path's of phase 20, the Swin-L OpenVIS and LV-VIS paths' of phase
+21 and the mask-adapted towers' of phase 22),
 its error
 against its plain version, its time (``ms``: the wrapper's call from CUDA
 events; ``device_ms``: the kernel alone, from ``torch.profiler``), the plain
@@ -626,6 +641,12 @@ SWINL_TRAINED = ("segmenter.backbone.stage2_block17.attn.relative_position_bias_
                  "segmenter.backbone.patch_embed.weight",
                  "segmenter.predictor.heads.class_embed.weight")
 
+
+# phase 22: the mask-adapted towers
+ADAPTED_RN_TOWERS = ("RN50", "RN101")
+ADAPTED_RN_CROPS = 100        # a frame's crops, timed in bf16
+ADAPTED_RN_CHECK_CROPS = 8    # f32, card against CPU
+ADAPTED_RN_REL_TO_MAX = 1e-4  # CLIP_TOWER_REL_TO_MAX: TF32 off, the same arithmetic
 
 _START = time.perf_counter()
 
@@ -3749,10 +3770,11 @@ def _openvis_window(cfg, model, visual, text):
     return fn
 
 
-def phase_openvis_window(card, cfg, visual):
+def phase_openvis_window(card, cfg, visual, label="openvis_window_full_width", extra=None):
     """15.1: the OpenVISOnline eval window at full width, bf16, three windows
     of 10x384x640 with K=40 text rows, with its split and TFLOP/s against
-    FLOPS.json's count; returns the launches."""
+    FLOPS.json's count; returns the launches and the split.  ``label``: the
+    phase's name; ``extra``: more fields for its line."""
     model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED).to(
         dtype=torch.bfloat16).eval()
     rng = np.random.RandomState(SEED)
@@ -3789,7 +3811,8 @@ def phase_openvis_window(card, cfg, visual):
         flop = json.load(f)["openvis_online_r50_inference"]["flops"]
     shape = model_shape(cfg.model.clip_adapter.clip_model_name)
     crops_flop = vit_flops(shape) * q * t
-    emit({"phase": "openvis_window_full_width", "config": OPENVIS_CONFIG, "dtype": "bfloat16",
+    emit({"phase": label, "config": OPENVIS_CONFIG, "dtype": "bfloat16",
+          "clip_adapter": cfg.model.clip_adapter.name,
           "windows": NUM_WINDOWS, "frames_per_window": t, "frame_hw": [h, w],
           "ms_per_window": ms, "frames_per_s": t / (ms / 1e3),
           "split_ms_per_window": split, "peak_mem_gib": peak,
@@ -3798,18 +3821,22 @@ def phase_openvis_window(card, cfg, visual):
           "crops_per_window": q * t,
           "tower_tflop_per_s": crops_flop / (split["crops"] - split["roi_crop"]) / 1e9,
           "valid_queries_scored": [int((o["scores"] > 0).sum()) for o in outs],
-          "launches": launches, "expected_launches": expected, "card": card})
+          "launches": launches, "expected_launches": expected, **(extra or {}), "card": card})
     if launches != expected:
         raise AssertionError(f"OpenVIS window launches {launches} != {expected}")
-    return launches
+    return launches, split
 
 
-def phase_openvis_vs_plain(cfg, root):
+def phase_openvis_vs_plain(cfg, root, phase="openvis_kernels_vs_plain"):
     """15.2: one f32 OpenVIS window at full width at 192x320 on the card
     (kernels) against the CPU (plain), TF32 off, the crops through the
-    test-tiny tower."""
+    test-tiny tower (for the ``adapted`` adapter a mask-prompted one, its
+    prompt table drawn nonzero)."""
     weights = os.path.join(root, "clip_check.pt")
-    torch.save(clip_synthetic.openai_state_dict(OPENVIS_CHECK_CLIP, seed=SEED + 5), weights)
+    depth = (cfg.model.clip_adapter.mask_prompt_depth
+             if cfg.model.clip_adapter.name in clip_towers.ADAPTED else 0)
+    torch.save(clip_synthetic.openai_state_dict(OPENVIS_CHECK_CLIP, seed=SEED + 5,
+                                                mask_prompt_depth=depth), weights)
     f32 = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, test=dataclasses.replace(cfg.model.test, amp=False),
         clip_adapter=dataclasses.replace(cfg.model.clip_adapter,
@@ -3823,7 +3850,7 @@ def phase_openvis_vs_plain(cfg, root):
         return fn
 
     cpu_model = init_params(train.build_model(f32, device="cpu"), seed=SEED + 1)
-    _hold_window_to_plain("openvis_kernels_vs_plain", f32, cpu_model, CHECK_TRAIN_H,
+    _hold_window_to_plain(phase, f32, cpu_model, CHECK_TRAIN_H,
                           CHECK_TRAIN_W, make_eval, model_shape(OPENVIS_CHECK_CLIP)["embed_dim"])
 
 
@@ -3940,10 +3967,12 @@ def phase_openvis_engine(card, clip, visual):
 def phase_openvis(card, clip):
     """Phase 15: OpenVISOnline with the recipe's model and its CLIP tower (a
     random ViT-B/16 in OpenAI's layout from ``clip``); returns its paths'
-    launch counts by name."""
+    launch counts by name and the window's split (ms by span), which phase 22
+    prints beside the adapted tower's."""
     cfg = _openvis_config(clip)
     visual = clip_towers.build_clip_visual(cfg, DEVICE)
-    launches = {"openvis_eval": phase_openvis_window(card, cfg, visual)}
+    launches = {}
+    launches["openvis_eval"], split_ms = phase_openvis_window(card, cfg, visual)
     root = tempfile.mkdtemp(prefix="chip_smoke_openvis_")
     try:
         phase_openvis_vs_plain(cfg, root)
@@ -3956,7 +3985,7 @@ def phase_openvis(card, clip):
     torch.cuda.empty_cache()
     launches["openvis_cli_train"], launches["openvis_cli_eval"] = _recipe_cli(
         card, clip, OPENVIS_CONFIG, OPENVIS_CLI_STEPS, "openvis")
-    return launches
+    return launches, split_ms
 
 
 def _burst_config(clip, root, name, *overrides):
@@ -5838,6 +5867,262 @@ def phase_swinl(card, clip, big, clip_dir, stage1):
     return launches
 
 
+def write_adapted_clip_file(root, clip, depth):
+    """Phase 11's ViT-B/16 file with a mask-adapted fine-tune's learned prompt
+    table, ``visual.mask_embedding`` (depth, 196, 768), drawn nonzero from the
+    seed: (weights, bpe)."""
+    state = torch.load(clip[0], map_location="cpu", weights_only=True)
+    width = state["visual.conv1.weight"].shape[0]
+    grid = state["visual.positional_embedding"].shape[0] - 1
+    gen = torch.Generator().manual_seed(SEED + 22)
+    state["visual.mask_embedding"] = (torch.randn((depth, grid, width), generator=gen)
+                                      * width ** -0.5).to(state["visual.proj"].dtype)
+    path = os.path.join(root, "ViT-B-16-mask-adapted.pt")
+    torch.save(state, path)
+    return path, clip[1]
+
+
+def _hold_k4_recorded(phase, rec: HungarianRecorder) -> int:
+    """K4's assignment of every cost ``rec`` saw, element for element against
+    ``hungarian_plain``; returns the problems held."""
+    plain = _plain_assignments(rec.costs)
+    cols = [c for cost_cols in rec.cols for c in cost_cols]
+    differ = [i for i, ((ref, _), got) in enumerate(zip(plain, cols)) if not torch.equal(ref, got)]
+    emit({"phase": f"{phase}_k4_vs_plain", "problems": len(plain), "differing": differ})
+    if differ or not plain:
+        raise AssertionError(f"{phase}: K4 differs from hungarian_plain on {differ} "
+                             f"of {len(plain)} problems")
+    return len(plain)
+
+
+def phase_adapted_openvis(card, clip_adapted, plain_split_ms):
+    """22.1-22.2: the OpenVISOnline recipe with ``model.clip_adapter.name=adapted``
+    (the mask-prompted ViT-B/16 of ``clip_adapted``): phase 15.1's three bf16
+    windows with their split beside phase 15's plain tower's (``plain_split_ms``) and K1 on the
+    first encoder layer's inputs (recorded in the warm-up window) against its
+    plain version; then 15.2's f32 window at 192x320, card (K1, K4) against
+    CPU (plain)."""
+    cfg = _openvis_config(clip_adapted, "model.clip_adapter.name=adapted")
+    visual = clip_towers.build_clip_visual(cfg, DEVICE)
+    with MsdaRecorder() as k1_rec:
+        launches, _ = phase_openvis_window(
+            card, cfg, visual, label="openvis_adapted_window_full_width",
+            extra={"plain_tower_split_ms_per_window": plain_split_ms,
+                   "mask_prompt_depth": cfg.model.clip_adapter.mask_prompt_depth})
+    _hold_k1("openvis_adapted_eval", k1_rec)
+    del visual
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_adapted_")
+    try:
+        phase_openvis_vs_plain(cfg, root, "openvis_adapted_kernels_vs_plain")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _adapted_ensemble_config(root, clip, **ca):
+    """Phase 12's engine config (SimpleBaselineOnline, the recipe's
+    ``clip_adapter``) with ``bg_adapted``, the CLIP files ``clip`` and
+    ``ca``; the segmenter's text width is the tower's embed width."""
+    cfg = _ensemble_config(root, clip)
+    ca = dataclasses.replace(cfg.model.clip_adapter, name="bg_adapted", **ca)
+    dim = model_shape(ca.clip_model_name)["embed_dim"]
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, clip_adapter=ca, transformer_decoder=dataclasses.replace(
+            cfg.model.transformer_decoder, clip_embed_dim=dim)))
+
+
+def _adapted_ensemble_engine(card, clip, label, **ca):
+    """22.3 (and 22.4's RN50): SimpleBaselineOnline's ensemble through the
+    engine over phase 10's second video, bf16 AMP, with ``bg_adapted`` and
+    the CLIP files ``clip``: the text bank, a warm-up, the timed run with its
+    split, K4 on every tracking cost against ``hungarian_plain``; returns the
+    launches."""
+    import train_net_torch as cli
+
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    try:
+        _write_engine_dataset(root)
+        cfg = _adapted_ensemble_config(root, clip, **ca)
+        model = init_params(train.build_model(cfg, device=DEVICE), seed=SEED)
+        t0 = time.perf_counter()
+        text = cli.build_text_bank(cfg, DEVICE).encode(
+            list(catalog.get(ENGINE_DATASET).thing_classes))
+        bank_s = time.perf_counter() - t0
+        visual = clip_towers.build_clip_visual(cfg, DEVICE)
+        _engine_warm_up(cfg, model, text, visual, _engine_subset(ONLINE_ENGINE_VIDEOS))
+        with HungarianRecorder() as tracking:
+            metrics, spans, wall, launches = _engine_run(cfg, model, text, DEVICE, visual,
+                                                         ONLINE_ENGINE_VIDEOS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = _engine_expected(cfg, launches, ONLINE_ENGINE_VIDEOS)
+        nan_preds = sum(1 for p in spans.preds if not np.isfinite(p[3]))
+        finite = all(np.isfinite(v) for v in metrics.values())
+        q = cfg.model.transformer_decoder.num_queries
+        emit({"phase": label, "clip_adapter": dataclasses.asdict(cfg.model.clip_adapter),
+              "clip_embed_dim": cfg.model.transformer_decoder.clip_embed_dim,
+              "videos_hwtn": ONLINE_ENGINE_VIDEOS, "dtype": "bf16 AMP", "metrics": metrics,
+              "metrics_finite": finite, "predictions": len(spans.preds),
+              "nan_scored_predictions": nan_preds, "launches": launches,
+              "expected_launches": expected, "frames": spans.frames, "wall_s": wall,
+              "frames_per_s": spans.frames / wall, "crops": q * spans.frames,
+              "split_s": {**_engine_split(spans, wall),
+                          "ensemble_tracking_clip_topk_device":
+                              spans.device_seconds("ensemble_topk"),
+                          "clip_crops_device": spans.device_seconds("clip_crops"),
+                          "roi_crop_device": spans.device_seconds("roi_crop"),
+                          "text_bank_host": bank_s},
+              "peak_mem_gib": peak, "card": card})
+        if launches != expected:
+            raise AssertionError(f"{label} launches {launches} != {expected}")
+        if set(metrics) < {"AP", "AP50", "AR10"} or not spans.preds or not (finite or nan_preds):
+            raise AssertionError(f"{label} metrics {metrics}, {len(spans.preds)} predictions")
+        if len(spans.events["ensemble_topk"]) != len(ONLINE_ENGINE_VIDEOS) or \
+                not spans.events["roi_crop"]:
+            raise AssertionError(f"{label}: the engine did not run the CLIP ensemble")
+        _hold_k4_recorded(label, tracking)
+        if len(tracking.costs) != expected["hungarian"]:
+            raise AssertionError(f"{label}: {len(tracking.costs)} K4 calls recorded, "
+                                 f"{expected['hungarian']} launched")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _adapted_cli_eval(card, clip):
+    """22.3: ``train_net_torch.py --eval-only`` with the SimpleBSL online recipe
+    and ``model.clip_adapter.name=bg_adapted`` over phase 10's second video
+    (the seeded init: no checkpoint); returns the launches."""
+    import train_net_torch as cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_adapted_cli_")
+    try:
+        _write_engine_dataset(root)
+        out = os.path.join(root, "out")
+        opts = [f"model.clip_adapter.weights={clip[0]}", f"model.clip_adapter.bpe_vocab={clip[1]}",
+                "model.clip_adapter.name=bg_adapted", f"datasets.root={root}",
+                f"datasets.test=[{_engine_subset(ONLINE_ENGINE_VIDEOS)}]", f"output_dir={out}"]
+        cfg = load_config(CLI_CONFIG, opts)
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--config-file", CLI_CONFIG, "--eval-only", *opts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        ds = cfg.datasets.test[0]
+        with open(os.path.join(out, f"metrics_{ds}.json")) as f:
+            metrics = json.load(f)
+        with open(os.path.join(out, f"results_{ds}.json")) as f:
+            preds = json.load(f)
+        expected = _engine_expected(cfg, launches, ONLINE_ENGINE_VIDEOS)
+        emit({"phase": "ensemble_bg_adapted_cli_eval", "config": CLI_CONFIG,
+              "overrides": opts[2:3], "metrics": metrics, "predictions": len(preds),
+              "wall_s": wall, "launches": launches, "expected_launches": expected,
+              "card": card})
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()) or not preds:
+            raise AssertionError(f"the bg_adapted CLI eval wrote {metrics}, {len(preds)} "
+                                 "predictions")
+        if launches != expected:
+            raise AssertionError(f"bg_adapted CLI eval launches {launches} != {expected}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _rn_masks(rng, n, res):
+    """Soft crop masks (n, res, res): a rectangle at 0.9 on 0.1, and every
+    fourth crop covered whole (its attention pool masks every key: NaN)."""
+    m = np.full((n, res, res), 0.1, np.float32)
+    for i in range(n):
+        y0, x0 = rng.randint(0, res // 2, size=2)
+        m[i, y0:y0 + rng.randint(res // 4, res), x0:x0 + rng.randint(res // 4, res)] = 0.9
+        if i % 4 == 3:
+            m[i] = 0.9
+    return m
+
+
+def phase_rn_towers(card, clip_dir, bpe):
+    """22.4: the RN50 and RN101 towers (``bg_adapted``), each from a random
+    OpenAI-layout file read by the port's reader: the bf16 tower's ms on a
+    frame's 100 crops at 224, unmasked and masked, with TFLOP/s (the
+    operations counted by ``FlopCounterMode`` on those calls); then in f32
+    (TF32 off) on 8 crops, card against CPU, unmasked and masked, the NaN
+    rows (crops covered whole) equal.  Returns {name: weights path}."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = {}
+    for i, name in enumerate(ADAPTED_RN_TOWERS):
+        path = os.path.join(clip_dir, f"{name}.pt")
+        t0 = time.perf_counter()
+        torch.save(clip_synthetic.openai_state_dict(name, seed=SEED + 7 + i), path)
+        write_s = time.perf_counter() - t0
+        paths[name] = path
+        base = _adapted_ensemble_config(clip_dir, (path, bpe), clip_model_name=name)
+        res = model_shape(name)["image_size"]
+        rng = np.random.RandomState(SEED + 7)
+        t0 = time.perf_counter()
+        visual = clip_towers.build_clip_visual(base, DEVICE)
+        load_s = time.perf_counter() - t0
+        crops = torch.from_numpy(rng.randn(ADAPTED_RN_CROPS, res, res, 3).astype(np.float32))
+        masks = torch.from_numpy(_rn_masks(rng, ADAPTED_RN_CROPS, res))
+        crops, masks = crops.to(DEVICE, torch.bfloat16), masks.to(DEVICE, torch.bfloat16)
+        timing = {}
+        for key, args in (("unmasked", (crops,)), ("masked", (crops, masks))):
+            with FlopCounterMode(display=False) as counter:
+                out = visual(*args)
+            ms = time_cuda(lambda: visual(*args), iters=10, warmup=2)
+            flop = counter.get_total_flops()
+            timing[key] = {"ms_per_frame_of_crops": ms, "tflop": flop / 1e12,
+                           "tflop_per_s": flop / ms / 1e9, "bf16_peak_share": flop / ms * 1e3 /
+                           BF16_FLOPS, "nan_rows": int(torch.isnan(out.float()).any(1).sum())}
+        f32 = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, test=dataclasses.replace(base.model.test, amp=False)))
+        x = crops[:ADAPTED_RN_CHECK_CROPS].float().cpu()
+        m = masks[:ADAPTED_RN_CHECK_CROPS].float().cpu()
+        cpu_vis, gpu_vis = (clip_towers.build_clip_visual(f32, d) for d in ("cpu", DEVICE))
+        checks = {}
+        for key, args in (("unmasked", (x,)), ("masked", (x, m))):
+            ref = cpu_vis(*args)
+            got = gpu_vis(*(a.to(DEVICE) for a in args)).cpu()
+            nan_ref, nan_got = torch.isnan(ref).any(1), torch.isnan(got).any(1)
+            keep = ~nan_ref
+            err = ((got[keep] - ref[keep]).abs().max() / ref[keep].abs().max()).item()
+            checks[key] = {"max_abs_err_rel_to_max": err, "nan_rows": int(nan_ref.sum()),
+                           "nan_rows_equal": bool(torch.equal(nan_ref, nan_got))}
+        emit({"phase": "rn_tower", "model": name, "shape": model_shape(name),
+              "file_write_s": write_s, "tower_load_s": load_s, "crops": ADAPTED_RN_CROPS,
+              "bf16": timing, "f32_card_vs_cpu": checks, "check_crops": ADAPTED_RN_CHECK_CROPS,
+              "tol_rel_to_max": ADAPTED_RN_REL_TO_MAX, "card": card})
+        for key, c in checks.items():
+            if not (c["max_abs_err_rel_to_max"] <= ADAPTED_RN_REL_TO_MAX and c["nan_rows_equal"]):
+                raise AssertionError(f"the {name} tower ({key}) on the card disagrees with the "
+                                     f"CPU: {c}")
+        if not checks["masked"]["nan_rows"] or checks["unmasked"]["nan_rows"]:
+            raise AssertionError(f"{name}: the covered crops' NaN rows are not where expected")
+        del visual, cpu_vis, gpu_vis
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_mask_adapted(card, clip, clip_dir, plain_split_ms):
+    """Phase 22: the mask-adapted towers, the adapted OpenVIS window beside
+    phase 15's plain one (``plain_split_ms``); returns their paths' launch
+    counts by name."""
+    cfg = _openvis_config(clip, "model.clip_adapter.name=adapted")
+    adapted = write_adapted_clip_file(clip_dir, clip, cfg.model.clip_adapter.mask_prompt_depth)
+    launches = {"openvis_adapted_eval": phase_adapted_openvis(card, adapted, plain_split_ms)}
+    launches["ensemble_bg_adapted_engine"] = _adapted_ensemble_engine(
+        card, adapted, "ensemble_bg_adapted_engine")
+    launches["ensemble_bg_adapted_cli_eval"] = _adapted_cli_eval(card, adapted)
+    rn = phase_rn_towers(card, clip_dir, clip[1])
+    name = ADAPTED_RN_TOWERS[0]  # RN50: its text bank and the segmenter 1024 wide
+    launches["ensemble_rn50_engine"] = _adapted_ensemble_engine(
+        card, (rn[name], clip[1]), "ensemble_rn50_bg_adapted_engine", clip_model_name=name)
+    return launches
+
+
 def main() -> int:
     try:
         return _main()
@@ -5876,7 +6161,7 @@ def _main() -> int:
         stage1 = os.path.join(clip_dir, "san_checkpoints")
         san_launches = phase_san(card, clip, keep_checkpoints=stage1)
         brivis_launches = phase_brivis(card, clip, stage1)
-        openvis_launches = phase_openvis(card, clip)
+        openvis_launches, openvis_split_ms = phase_openvis(card, clip)
         burst_launches = phase_burst(card, clip, stage1)
         offline_launches = phase_offline(card, clip, stage1)
         ov2seg_launches = phase_ov2seg(card, clip)
@@ -5885,6 +6170,7 @@ def _main() -> int:
         masq_launches, masq_recorded = phase_masqclip(card, clip)
         fpn_launches = phase_fpn(card, clip)
         swinl_launches = phase_swinl(card, clip, big, clip_dir, stage1)
+        adapted_launches = phase_mask_adapted(card, clip, clip_dir, openvis_split_ms)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
     for name, extra in (*cli_recorded.items(), *masq_recorded.items()):
@@ -5916,7 +6202,8 @@ def _main() -> int:
                               **{path: n[name] for path, n in swin_launches.items()},
                               **{path: n[name] for path, n in masq_launches.items()},
                               **{path: n[name] for path, n in fpn_launches.items()},
-                              **{path: n[name] for path, n in swinl_launches.items()}},
+                              **{path: n[name] for path, n in swinl_launches.items()},
+                              **{path: n[name] for path, n in adapted_launches.items()}},
          "max_abs_err": fields[name]["max_abs_err"], "ms": fields[name]["ms"],
          "device_ms": fields[name]["device_ms"],
          "plain_ms": fields[name]["plain_ms"], "bound_ms": fields[name]["bound_ms"],

@@ -1,13 +1,12 @@
 """The frozen CLIP visual tower and the mask-crop score paths of the eval
 engine.
 
-Port of ``openvis_tpu/clip_towers.py`` for SimpleBaselineOnline's
-open-vocabulary ensemble (``simplebsl.py:122-163``): the plain ViT tower of
-``clip_adapter.name`` "clip" or "bg_clip", the crop text rows with the
-learned no-object row, the chunked mask-crop scoring over a video's real
-frames and the geometric-mean ensemble.  The mask-adapted towers
-("adapted", "bg_adapted") and the ModifiedResNet towers raise, naming
-ROADMAP.md queue 1 item 8.6.
+Port of ``openvis_tpu/clip_towers.py``: the towers of ``clip_adapter.name``
+"clip" and "bg_clip" (the plain ViT, or the ModifiedResNet for RN50/RN101)
+and "adapted" and "bg_adapted" (the mask-prompted towers of
+``models/clip_mask_adapted.py``), the crop text rows with the learned
+no-object row, the chunked mask-crop scoring over a video's real frames and
+SimpleBaselineOnline's geometric-mean ensemble (``simplebsl.py:122-163``).
 
 Under AMP eval (``test.amp``) the tower runs in bf16 with its LayerNorms and
 softmaxes in f32, as the JAX package's ``amp_cast`` of the tower does.
@@ -15,7 +14,7 @@ softmaxes in f32, as the JAX package's ``amp_cast`` of the tower does.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,33 +23,49 @@ from openvis_tpu_torch.config import Config
 from openvis_tpu_torch.convert import params_from_flax
 from openvis_tpu_torch.engine import eval_dtype
 from openvis_tpu_torch.models.clip.build import build_clip_params
-from openvis_tpu_torch.models.clip.model import model_shape, vision_tower
+from openvis_tpu_torch.models.clip.model import is_resnet, model_shape, vision_tower
 from openvis_tpu_torch.models.clip_adapter import clip_crop_classify, frame_average_scores
+from openvis_tpu_torch.models.clip_mask_adapted import MaskAdaptedVisual
 
 
-def _adapted_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item 8.6)")
+ADAPTED = ("adapted", "bg_adapted")
 
 
-def build_clip_visual(cfg: Config, device) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_clip_visual(cfg: Config, device) -> Callable:
     """The frozen CLIP visual tower of ``clip_adapter.clip_model_name`` from
     the local checkpoint ``clip_adapter.weights``, on ``device``, in the eval
-    dtype: ``visual_apply`` maps (R, S, S, 3) normalized crops to (R, D)
-    features (the JAX package's ``(visual_apply, adapted)`` without the flag:
-    the mask-adapted towers raise)."""
+    dtype, dispatched as the JAX package's ``build_clip_visual``
+    (``openvis_tpu/clip_towers.py:38-111``): a ModifiedResNet name builds the
+    maskable RN tower whatever the adapter, "adapted"/"bg_adapted" the
+    mask-prompted ViT (a plain OpenAI file grafts in with a zero
+    ``mask_embedding``, the reference's ``torch.zeros`` init), else the plain
+    ViT, which leaves a file's ``mask_embedding`` unread as JAX's does.
+    ``visual_apply`` maps (R, S, S, 3) normalized crops, and for the
+    adapted adapters optional (R, S, S) soft masks, to (R, D) features.
+    Under AMP every parameter is cast to bf16, as ``amp_cast`` casts the
+    tree (the folded BatchNorms too, which ``FrozenAffine`` upcasts)."""
     ca = cfg.model.clip_adapter
-    if ca.name in ("adapted", "bg_adapted"):
-        raise _adapted_not_ported(f"the mask-adapted CLIP tower ({ca.name!r})")
     if not ca.weights:
         raise ValueError("model.clip_adapter.weights is empty: the CLIP visual tower needs the "
                          "path of a CLIP checkpoint (.pt)")
-    vis = vision_tower(ca.clip_model_name)
-    vis.load_state_dict(params_from_flax(build_clip_params(ca.weights)["visual"]), strict=True)
+    shape = model_shape(ca.clip_model_name)
+    vtree = build_clip_params(ca.weights)["visual"]
+    if ca.name in ADAPTED and not is_resnet(shape):
+        vis = MaskAdaptedVisual(shape["vision_patch"], shape["vision_width"],
+                                shape["vision_layers"], shape["vision_heads"],
+                                shape["embed_dim"], shape["image_size"], ca.mask_prompt_depth)
+        if "mask_embedding" not in vtree:
+            vtree = dict(vtree, mask_embedding=np.zeros(tuple(vis.mask_embedding.shape),
+                                                        np.float32))
+    else:  # a mask-adapted file's prompt table has no place in the plain towers
+        vis = vision_tower(ca.clip_model_name)
+        vtree = {k: v for k, v in vtree.items() if k != "mask_embedding"}
+    vis.load_state_dict(params_from_flax(vtree), strict=True)
     vis = vis.to(device, eval_dtype(cfg)).eval().requires_grad_(False)
 
-    def visual_apply(images: torch.Tensor) -> torch.Tensor:
+    def visual_apply(images: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
         with torch.inference_mode():
-            return vis(images)
+            return vis(images) if masks is None else vis(images, masks)
 
     return visual_apply
 
@@ -94,17 +109,19 @@ def make_openvis_score_fn(cfg: Config, clip_visual_apply) -> Callable:
     """f(frames_raw (T, H, W, 3) 0-255, masks (T, Q, h, w) logits at the
     mask stride, text rows) -> (logits (T, Q, K), valid (T, Q)): the crops
     at the tower's own resolution (the reference reads
-    ``clip_model.visual.input_resolution``, adapter.py:40)."""
+    ``clip_model.visual.input_resolution``, adapter.py:40); the adapted
+    adapters hand the tower the soft mask crops when ``mask_prompt_fwd``
+    (``adapted_clip_crop_classify``, ``mask_adapted_adapter.py:59-76``)."""
     ca = cfg.model.clip_adapter
-    if ca.name in ("adapted", "bg_adapted"):
-        raise _adapted_not_ported("the mask-adapted crop classifier")
     res = model_shape(ca.clip_model_name)["image_size"]
+    stride = cfg.model.pixel_decoder.common_stride
+    mask_prompt = ca.name in ADAPTED and ca.mask_prompt_fwd
 
     def fn(frames_raw, masks_q, text_feats):
         return clip_crop_classify(
             clip_visual_apply, frames_raw, torch.sigmoid(masks_q), text_feats,
-            input_resolution=res, mask_stride=cfg.model.pixel_decoder.common_stride,
-            sampling_ratio=ca.crop_sampling_ratio,
+            input_resolution=res, mask_stride=stride, sampling_ratio=ca.crop_sampling_ratio,
+            mask_prompt=mask_prompt,
         )
 
     return fn

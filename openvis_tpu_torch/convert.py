@@ -11,10 +11,11 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
   * LayerNorm/GroupNorm ``scale``   -> ``weight``
   * Embed ``embedding``             -> ``weight`` (CLIP's token embedding)
   * everything else as it is: ``bias``, the ``FrozenAffine`` ``scale``/``bias``
-    of the ResNet, ``level_embed``, ``query_feat``, ``query_embed``,
-    ``non_object_embedding``, CLIP's ``proj``, ``text_projection``,
-    ``class_embedding``, ``positional_embedding`` and ``logit_scale``,
-    MasQCLIP's ``mask_embeddings``, and
+    of the ResNet and of CLIP's ModifiedResNet, ``level_embed``,
+    ``query_feat``, ``query_embed``, ``non_object_embedding``, CLIP's
+    ``proj``, ``text_projection``, ``class_embedding``,
+    ``positional_embedding`` and ``logit_scale``, MasQCLIP's
+    ``mask_embeddings``, the mask-prompted ViT's ``mask_embedding``, and
     SAN's ``bg_embed`` (its 1x1 ``attn_proj``/``attn_mlp`` kernels are Conv
     kernels, its ``attn_embed`` Dense layers), and Swin's
     ``relative_position_bias_table`` and NHWC ``absolute_pos_embed``.
@@ -22,8 +23,7 @@ ones, so the key is the flax path joined by dots, and the leaves map as:
 A Swin trunk's LayerNorms (``norm1``, ``norm2``, ``patch_norm``,
 ``out_norm{i}``, ``downsample{i}/norm``) are LayerNorms, not folded
 BatchNorms: their ``scale`` becomes ``weight`` (``_is_frozen_affine`` takes
-only the ResNet's stem norm and the norms directly inside a
-``res<k>_block<b>``).
+only the folded norms of the two ResNets).
 
 The CLIP towers keep flax's module levels, the ``ln`` inside each
 ``LayerNormF32`` included, so their keys need no other rule; the bias-free
@@ -46,7 +46,7 @@ from torch import nn
 from openvis_tpu_torch.models.backbone.resnet import FrozenAffine
 from openvis_tpu_torch.models.pixel_decoder import MSDeformAttnModule, ring_bias
 
-_RESNET_BLOCK = re.compile(r"res\d+_block\d+")
+_RESNET_BLOCK = re.compile(r"res\d+_block\d+|layer\d+_block\d+")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -58,9 +58,10 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
 
 
 def _is_frozen_affine(path: Tuple[str, ...]) -> bool:
-    """The ResNet's folded BatchNorms: the stem norm and the norms directly
-    inside a ``res<k>_block<b>``."""
-    return path[-2].startswith("stem_norm") or (
+    """The folded BatchNorms: the ResNet's stem norm and the norms directly
+    inside a ``res<k>_block<b>``, the CLIP ModifiedResNet's ``stem_bn<i>`` and
+    the norms directly inside a ``layer<k>_block<b>``."""
+    return path[-2].startswith(("stem_norm", "stem_bn")) or (
         len(path) >= 3 and _RESNET_BLOCK.fullmatch(path[-3]) is not None
     )
 
@@ -137,8 +138,7 @@ def _lecun_normal_(w: torch.Tensor, g: torch.Generator) -> None:
     1 / fan_in."""
     fan_in = w[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncation correction
-    draw = torch.fmod(torch.randn(w.shape, generator=g), 2.0)
-    w.copy_(draw * std)
+    w.copy_(torch.randn(w.shape, generator=g).fmod_(2.0).mul_(std))
 
 
 @torch.no_grad()

@@ -31,7 +31,6 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
 from openvis_tpu_torch.data import rle as rle_util
 from openvis_tpu_torch.evals.ytvis_eval import YTVOSEval, threshold_masks
@@ -69,6 +68,8 @@ def hota_for_class(
     Returns HOTA / DetA / AssA for one class (TrackEval hota.py semantics;
     videos are sequences, combined by summing TP/FN/FP and the TP-weighted
     AssA numerator)."""
+    from scipy.optimize import linear_sum_assignment  # ~1.5 s to import: only here
+
     n_a = len(ALPHAS)
     tp = np.zeros(n_a)
     fn = np.zeros(n_a)

@@ -15,7 +15,10 @@ Port of ``openvis_tpu/models/clip/model.py`` (OpenAI's CLIP architecture):
     ``run_blocks(lo, hi, attn_bias, taps, sos_q)`` / ``finalize``;
   * SAN's biased attention (``side_adapter.py:237-270``): a per-head
     additive ``attn_bias``, or with ``sos_q`` the sos-split form whose bias
-    covers the sos rows' context columns only.
+    covers the sos rows' context columns only;
+  * ``_MODEL_SHAPES`` of the ViT and ModifiedResNet (RN50, RN101) CLIPs:
+    ``vision_tower`` builds the ModifiedResNet of a tuple ``vision_layers``
+    from ``models/clip_mask_adapted.py``.
 
 Module and parameter names mirror the flax ones (``resblock{i}``, the
 LayerNorm's inner ``ln``), so ``convert.params_from_flax`` maps a JAX or a
@@ -143,9 +146,11 @@ class CLIPTextEncoder(nn.Module):
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:  # (B, context_length) int
-        x = self.token_embedding(tokens) + self.positional_embedding[None]
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, L) int, L <= context_length: the prompts may be cut after
+        their last EOT, which no earlier position attends to."""
         l = tokens.shape[1]
+        x = self.token_embedding(tokens) + self.positional_embedding[None, :l]
         causal = torch.full((l, l), NEG_INF, dtype=x.dtype, device=x.device).triu(1)
         for block in self.blocks:
             x = block(x, attn_mask=causal)
@@ -184,19 +189,28 @@ class CLIPVisionTransformer(nn.Module):
         self.ln_post = LayerNormF32(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 
-    def embed(self, images: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    def patch_tokens(self, images: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
         """images (B, H, W, 3) normalized, H and W multiples of the patch ->
-        ((B, 1+hw, C), (h, w))."""
+        ((B, hw, C) patch tokens, (h, w))."""
         if images.shape[1] % self.patch_size or images.shape[2] % self.patch_size:
             raise ValueError(f"image size {tuple(images.shape[1:3])} is not a multiple of the "
                              f"patch size {self.patch_size}")
         x = self.conv1(images.permute(0, 3, 1, 2))                   # (B, C, h, w)
-        b, c, h, w = x.shape
-        x = x.flatten(2).transpose(1, 2)                              # (B, hw, C)
+        return x.flatten(2).transpose(1, 2), tuple(x.shape[2:])
+
+    def embed_tokens(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        """(B, hw, C) patch tokens -> (B, 1+hw, C): the class token, the
+        positional embedding at the grid ``hw`` and ``ln_pre``."""
+        b, _, c = x.shape
         cls = self.class_embedding.to(x.dtype).expand(b, 1, c)
         x = torch.cat([cls, x], dim=1)
-        x = x + resize_pos_embed(self.positional_embedding, (h, w))[None].to(x.dtype)
-        return self.ln_pre(x), (h, w)
+        x = x + resize_pos_embed(self.positional_embedding, hw)[None].to(x.dtype)
+        return self.ln_pre(x)
+
+    def embed(self, images: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """images (B, H, W, 3) normalized -> ((B, 1+hw, C), (h, w))."""
+        x, hw = self.patch_tokens(images)
+        return self.embed_tokens(x, hw), hw
 
     def run_blocks(self, x: torch.Tensor, lo: int, hi: int, attn_bias=None,
                    taps: Sequence[int] = (), sos_q: int = 0
@@ -268,8 +282,7 @@ _MODEL_SHAPES = {
     "ViT-L/14@336px": dict(embed_dim=768, vision_patch=14, vision_width=1024,
                            vision_layers=24, vision_heads=16, image_size=336,
                            text_width=768, text_heads=12, text_layers=12),
-    # ModifiedResNet towers (vision_layers is a TUPLE): not ported yet
-    # (ROADMAP.md queue 1 item 8.6)
+    # ModifiedResNet towers (vision_layers is a tuple; mask_adapted_clip/model.py:387-401)
     "RN50": dict(embed_dim=1024, vision_patch=None, vision_width=64,
                  vision_layers=(3, 4, 6, 3), vision_heads=32, image_size=224,
                  text_width=512, text_heads=8, text_layers=12),
@@ -290,18 +303,37 @@ _MODEL_SHAPES = {
 
 
 def model_shape(model_name: str) -> Dict:
-    """The shape of a ViT CLIP; the ModifiedResNet towers raise."""
+    """The shape of a CLIP: a ViT, or a ModifiedResNet (``vision_layers`` a
+    tuple of blocks a stage, ``vision_patch`` None)."""
     if model_name not in _MODEL_SHAPES:
         raise ValueError(f"unknown CLIP model {model_name!r}")
-    shape = _MODEL_SHAPES[model_name]
-    if isinstance(shape["vision_layers"], tuple):
-        raise NotImplementedError(f"the ModifiedResNet CLIP tower {model_name!r} is not ported "
-                                  "yet (ROADMAP.md, queue 1 item 8.6)")
-    return shape
+    return _MODEL_SHAPES[model_name]
 
 
-def vision_tower(model_name: str) -> CLIPVisionTransformer:
+def vit_shape(model_name: str, user: str) -> Dict:
+    """The shape of a ViT CLIP; ``user`` (a tower that reads the ViT's blocks)
+    refuses a ModifiedResNet with a ValueError, as the JAX package cannot
+    build it either."""
     s = model_shape(model_name)
+    if is_resnet(s):
+        raise ValueError(f"{user} needs a ViT CLIP, not the ModifiedResNet {model_name!r}")
+    return s
+
+
+def is_resnet(shape: Dict) -> bool:
+    return isinstance(shape["vision_layers"], tuple)
+
+
+def vision_tower(model_name: str) -> nn.Module:
+    """The visual tower of ``model_name``: the ViT, or the ModifiedResNet with
+    its maskable attention pool."""
+    s = model_shape(model_name)
+    if is_resnet(s):
+        # imported here: clip_mask_adapted builds on this module's blocks
+        from openvis_tpu_torch.models.clip_mask_adapted import MaskAdaptedModifiedResNet
+
+        return MaskAdaptedModifiedResNet(s["vision_layers"], s["vision_width"], s["embed_dim"],
+                                         s["vision_heads"], s["image_size"])
     return CLIPVisionTransformer(s["vision_patch"], s["vision_width"], s["vision_layers"],
                                  s["vision_heads"], s["embed_dim"], s["image_size"])
 

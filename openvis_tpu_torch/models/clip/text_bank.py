@@ -4,9 +4,10 @@ Port of ``openvis_tpu/models/clip/text_bank.py`` (the reference's
 ``ClipAdapter.encode_text`` cache, ``openvis/modeling/clip_adapter/adapter.py:121-138``):
 each class name is encoded once under every template, the per-template
 embeddings are L2-normalized, averaged and normalized again.  The text tower
-runs on the bank's device in chunks of ``batch_size`` prompts; the chunks are
-not padded to one shape (nothing is traced), and the rows equal the JAX
-bank's.
+runs on the bank's device in chunks of ``batch_size`` prompts, each cut after
+its last EOT token (the causal tower's features there read no later
+position); the chunks are not padded to one shape (nothing is traced), and
+the rows equal the JAX bank's.
 """
 
 from __future__ import annotations
@@ -37,9 +38,14 @@ class TextEmbeddingBank:
 
     @torch.inference_mode()
     def _encode_tokens(self, tokens: np.ndarray) -> np.ndarray:
+        """Each chunk cut after its last EOT (the highest token id): the
+        causal tower's EOT feature reads no later position, so the rows are
+        those of the whole context (a prompt of the vild set is ~10 of 77)."""
         outs = []
         for i in range(0, len(tokens), self.batch_size):
-            chunk = torch.from_numpy(tokens[i:i + self.batch_size]).to(self.device, torch.long)
+            chunk = tokens[i:i + self.batch_size]
+            chunk = chunk[:, :int(chunk.argmax(axis=1).max()) + 1]
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device, torch.long)
             outs.append(self.encoder(chunk).float().cpu().numpy())
         return np.concatenate(outs, axis=0)
 

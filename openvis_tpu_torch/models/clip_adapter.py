@@ -139,9 +139,13 @@ def clip_crop_classify(
     temperature: float = 100.0,
     mask_stride: int = 1,       # masks on a coarser grid: boxes x stride for the frame crop
     sampling_ratio: int = 1,
+    mask_prompt: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (T, Q, K), valid (T, Q)); ``ClipAdapter.forward`` with
-    ``_preprocess_image`` (adapter.py:56-116), one frame at a time."""
+    ``_preprocess_image`` (adapter.py:56-116), one frame at a time.  With
+    ``mask_prompt`` the tower also takes the soft mask crops (Q, S, S):
+    ``visual_apply(crops, mask_crops)``, the mask-adapted towers' prompt
+    (``clip_mask_adapted.adapted_clip_crop_classify``)."""
     mean = torch.tensor(CLIP_PIXEL_MEAN, dtype=frames_raw.dtype, device=frames_raw.device)
     std = torch.tensor(CLIP_PIXEL_STD, dtype=frames_raw.dtype, device=frames_raw.device)
     logits, valid = [], []
@@ -150,7 +154,9 @@ def clip_crop_classify(
         crops = roi_crop(frame[None], boxes * mask_stride, input_resolution, sampling_ratio)
         mask_crops = roi_crop(masks_f[..., None], boxes, input_resolution, sampling_ratio)
         blended = crops * mask_crops                             # bg -> 0 (adapter.py:115)
-        feats = visual_apply((blended / 255.0 - mean) / std)     # (Q, D)
+        clip_in = (blended / 255.0 - mean) / std
+        feats = (visual_apply(clip_in, mask_crops[..., 0]) if mask_prompt
+                 else visual_apply(clip_in))                     # (Q, D)
         feats = feats / (torch.linalg.vector_norm(feats, dim=-1, keepdim=True) + 1e-6)
         logits.append(temperature * feats @ text_feats.T)
         valid.append(ok)

@@ -37,7 +37,7 @@ from torch import nn
 
 from openvis_tpu_torch.config import ModelConfig
 from openvis_tpu_torch.losses.criterion import process_draw, target_rows_t
-from openvis_tpu_torch.models.clip.model import model_shape
+from openvis_tpu_torch.models.clip.model import vit_shape
 from openvis_tpu_torch.models.clip_masq import MasQCLIPVisual, preprocess_frames
 from openvis_tpu_torch.models.meta.ov2seg import _weighted_nll
 from openvis_tpu_torch.models.segmenter import Segmenter
@@ -57,7 +57,7 @@ class MasQCLIPModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.segmenter = Segmenter(cfg)
-        s = model_shape(cfg.clip_adapter.clip_model_name)
+        s = vit_shape(cfg.clip_adapter.clip_model_name, "MasQCLIP's tower")
         self.clip_adapter = MasQCLIPVisual(s["vision_patch"], s["vision_width"],
                                            s["vision_layers"], s["vision_heads"],
                                            s["embed_dim"], s["image_size"])

@@ -21,10 +21,16 @@ def inference_video_topk(
     """The scores are in track order.  With ``track_indices`` only the
     selected masks are gathered from the raw per-frame order; without them
     the masks are already in track order (the CLIP ensemble aligns them all).
-    Ties in ``torch.topk`` may resolve otherwise than ``jax.lax.top_k``."""
+    The order is ``jax.lax.top_k``'s on the CPU: ties to the lower index, and
+    a NaN score (an all-covered ModifiedResNet crop's) below every number, as
+    XLA's total order puts the NaNs the CPU computes (sign bit set); the NaN
+    scores themselves are kept."""
     q, k = scores.shape
     topk = min(topk, q * k)
-    top_scores, top_idx = torch.topk(scores.reshape(-1), topk)
+    flat = scores.reshape(-1)
+    key = torch.where(torch.isnan(flat), float("-inf"), flat)
+    top_idx = torch.sort(key, descending=True, stable=True).indices[:topk]
+    top_scores = flat[top_idx]
     labels = top_idx % k
     query_idx = torch.div(top_idx, k, rounding_mode="floor")
     sel_scores = scores[query_idx]                            # (topk, K)

@@ -36,8 +36,8 @@ from torch import nn
 from openvis_tpu_torch.models.clip.model import (
     CLIP_PIXEL_MEAN,
     CLIP_PIXEL_STD,
-    model_shape,
     vision_tower,
+    vit_shape,
 )
 from openvis_tpu_torch.utils.image import resize_bicubic_torch_hw
 
@@ -64,7 +64,7 @@ class SideAdapter(nn.Module):
                  broken_idx: int = 9, merge_ids: Sequence[int] = (3, 6, 9),
                  num_queries: int = 100):
         super().__init__()
-        shape = model_shape(clip_model_name)
+        shape = vit_shape(clip_model_name, "SAN's side adapter")
         self.broken_idx, self.merge_ids = broken_idx, tuple(merge_ids)
         self.num_queries = num_queries
         self.input_resolution = shape["image_size"]

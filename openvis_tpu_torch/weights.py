@@ -16,9 +16,11 @@ belongs to the JAX package, which the port does not import):
     keys (``segmenter_state``).
 
 ``convert_clip`` (``:366``, ``_clip_block`` ``:319``) converts an OpenAI CLIP
-ViT state dict the same way.  The ModifiedResNet CLIP reader is not ported
-yet and raises, naming its ROADMAP.md item (8.6).  The JAX
-package's flax ``.msgpack`` files, already in the flax layout, are read by
+state dict the same way: a ViT (with a mask-adapted file's
+``visual.mask_embedding``, ``:396-399``) or a ModifiedResNet (RN50/RN101,
+``_convert_clip_rn_visual`` ``:337``: its BatchNorms folded with ``BN_EPS``
+into ``FrozenAffine`` scales and biases).  The JAX package's flax
+``.msgpack`` files, already in the flax layout, are read by
 ``utils/flax_msgpack.py``, not here.
 """
 
@@ -264,10 +266,6 @@ def migrate_legacy_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item {item})")
-
-
 def convert_mask2former(
     state: Dict[str, np.ndarray],
     depth: int = 50,
@@ -308,12 +306,34 @@ def _n_blocks(d, prefix):
     return len({k[len(prefix):].split(".")[0] for k in d if k.startswith(prefix)})
 
 
-def convert_clip(state: Dict[str, np.ndarray]) -> Dict:
-    """OpenAI CLIP state dict (ViT) -> {visual, text, logit_scale}; the
-    ModifiedResNet (RN50/RN101) towers raise."""
-    d = state
-    if "visual.layer1.0.conv1.weight" in d:
-        raise _not_ported("the ModifiedResNet CLIP tower's weight reader", "8.6")
+def _convert_clip_rn_visual(d) -> Dict:
+    """OpenAI's ModifiedResNet visual tower -> ``MaskAdaptedModifiedResNet``'s
+    tree: the 3-conv stem, the bottlenecks (``downsample.0``/``.1`` the
+    shortcut's conv and BatchNorm), the attention pool's projections."""
+    visual = {}
+    for i in (1, 2, 3):
+        visual[f"stem_conv{i}"] = _conv(d, f"visual.conv{i}", bias=False)
+        visual[f"stem_bn{i}"] = _frozen_bn(d, f"visual.bn{i}")
+    for si in range(1, 5):
+        b = 0
+        while f"visual.layer{si}.{b}.conv1.weight" in d:
+            pre = f"visual.layer{si}.{b}"
+            blk = {}
+            for ci in (1, 2, 3):
+                blk[f"conv{ci}"] = _conv(d, f"{pre}.conv{ci}", bias=False)
+                blk[f"bn{ci}"] = _frozen_bn(d, f"{pre}.bn{ci}")
+            if f"{pre}.downsample.0.weight" in d:
+                blk["downsample_conv"] = _conv(d, f"{pre}.downsample.0", bias=False)
+                blk["downsample_bn"] = _frozen_bn(d, f"{pre}.downsample.1")
+            visual[f"layer{si}_block{b}"] = blk
+            b += 1
+    visual["positional_embedding"] = d["visual.attnpool.positional_embedding"]
+    for p in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        visual[p] = _lin(d, f"visual.attnpool.{p}")
+    return visual
+
+
+def _convert_clip_vit_visual(d) -> Dict:
     visual = {
         "conv1": {"kernel": np.ascontiguousarray(d["visual.conv1.weight"].transpose(2, 3, 1, 0))},
         "class_embedding": d["visual.class_embedding"],
@@ -322,8 +342,21 @@ def convert_clip(state: Dict[str, np.ndarray]) -> Dict:
         "ln_post": _ln_f32(d, "visual.ln_post"),
         "proj": d["visual.proj"],
     }
+    # a mask-adapted file's learned prompt table (ov-seg's fine-tunes); the
+    # adapted tower zero-inits it for a plain OpenAI file
+    if "visual.mask_embedding" in d:
+        visual["mask_embedding"] = d["visual.mask_embedding"]
     for i in range(_n_blocks(d, "visual.transformer.resblocks.")):
         visual[f"resblock{i}"] = _clip_block(d, f"visual.transformer.resblocks.{i}")
+    return visual
+
+
+def convert_clip(state: Dict[str, np.ndarray]) -> Dict:
+    """OpenAI CLIP state dict (ViT or ModifiedResNet, told apart by its keys)
+    -> {visual, text, logit_scale}."""
+    d = state
+    visual = (_convert_clip_rn_visual(d) if "visual.layer1.0.conv1.weight" in d
+              else _convert_clip_vit_visual(d))
     text = {
         "token_embedding": {"embedding": d["token_embedding.weight"]},
         "positional_embedding": d["positional_embedding"],

@@ -4,6 +4,8 @@ resampler's 1-D convolutions (even kernels refused, rank-3 kernels through
 fixed assignment and the tracking matcher.  Shapes and helpers:
 ``tests/test_torch_port_brivis.py``."""
 
+import dataclasses
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,8 @@ import torch
 
 import openvis_tpu.losses.criterion as jcrit
 import openvis_tpu.train as jax_train
+from openvis_tpu.models import resampler as jax_resampler
+from openvis_tpu.models.segmenter import Segmenter as JaxSegmenter
 from openvis_tpu.config import Config as JaxConfig
 from openvis_tpu.parallel.train_step import label_params as jax_label_params
 from openvis_tpu.structures import ClipTargets as JaxTargets
@@ -71,15 +75,66 @@ def test_rank3_kernels_round_trip_and_convolve_as_flax():
     assert _rel(got, ref) <= 1e-5
 
 
+def _jax_resampler(name, cfg):
+    """JAX's resampler of kind ``name`` as ``BriVISModel.setup`` builds it."""
+    m = cfg.model
+    kw = dict(hidden_dim=m.transformer_decoder.hidden_dim,
+              feed_dim=m.transformer_decoder.dim_feedforward, nheads=m.transformer_decoder.nheads,
+              nlayers=m.resampler.num_layers, conv_kernels=tuple(m.resampler.conv_kernels))
+    if name == "decoupled":
+        return jax_resampler.DecoupledTemporalResampler(
+            nqueries=m.transformer_decoder.num_queries, **kw)
+    if name == "raw":
+        return jax_resampler.RawTemporalResampler(**kw)
+    return jax_resampler.TemporalResampler(**kw)
+
+
+def _children(cfg):
+    """``BriVISModel.setup``'s submodules for ``cfg``, bound and untraced:
+    {scope name: module}."""
+    bound = jax_train.build_model(cfg).bind({})
+    bound._try_setup()
+    return dict(bound._state.children)
+
+
+def _fields(module):
+    return {f.name: getattr(module, f.name) for f in dataclasses.fields(module)
+            if f.name not in ("parent", "name")}
+
+
 def test_brivis_tree_loads_into_the_port_and_groups_match_jax():
     """The JAX model's parameter tree (shapes by ``eval_shape``) loads into the
     port strictly, for each resampler; the groups equal JAX's ``label_params``
-    on the same tree; the decoupled queries draw N(0, 1)."""
+    on the same tree; the decoupled queries draw N(0, 1).  The model is traced
+    once: the resampler's kind changes only the ``resampler`` subtree
+    (``BriVISModel.setup``, checked on each kind's bound model: the same
+    submodules, the resampler the kind's own), which each kind's module gives
+    on its own from the segmenter's traced outputs (the temporal one held to
+    the model's)."""
+    jm = jax_train.build_model(brivis_cfg(JaxConfig, RESAMPLERS[0]))
+    variables = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((T, H, W, 3)), T, jnp.zeros((K, D)),
+        capture_intermediates=lambda mdl, method: (isinstance(mdl, JaxSegmenter)
+                                                   and method == "__call__")))
+    seg = variables["intermediates"]["segmenter"]["__call__"][0]
+    inputs = [seg["pred_embeds"], seg["mask_feats"], seg["attn_feats"]]
+    first = _children(brivis_cfg(JaxConfig, RESAMPLERS[0]))
+    assert set(first) == set(variables["params"])
     for name in RESAMPLERS:
         jcfg, cfg = brivis_cfg(JaxConfig, name), brivis_cfg(Config, name)
-        jm = jax_train.build_model(jcfg)
-        shapes = jax.eval_shape(lambda: jm.init(
-            jax.random.PRNGKey(0), jnp.zeros((T, H, W, 3)), T, jnp.zeros((K, D))))["params"]
+        kids = _children(jcfg)
+        assert {k: type(v) for k, v in kids.items()} == \
+            {k: type(v) for k, v in first.items() if k != "resampler"} | \
+            {"resampler": type(_jax_resampler(name, jcfg))}, name
+        assert _fields(kids["resampler"]) == _fields(_jax_resampler(name, jcfg)), name
+        args = inputs + ([seg["ms_feats"], seg["ms_pos"]] if name == "raw" else [])
+        zeros = jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), args)
+        resampler_shapes = jax.eval_shape(lambda: _jax_resampler(name, jcfg).init(
+            jax.random.PRNGKey(0), *zeros))["params"]
+        if name == RESAMPLERS[0]:
+            assert jax.tree.map(lambda a: (a.shape, a.dtype), resampler_shapes) == \
+                jax.tree.map(lambda a: (a.shape, a.dtype), variables["params"]["resampler"])
+        shapes = dict(variables["params"], resampler=resampler_shapes)
         rng = np.random.RandomState(0)
         tree = jax.tree.map(lambda s: np.asarray(rng.randn(*s.shape), np.float32), shapes)
         model = load_flax_params(train.build_model(cfg, device="cpu"), tree)

@@ -17,8 +17,10 @@ import torch
 from PIL import Image
 
 import train_net_torch
+from openvis_tpu_torch import clip_towers, engine, train
 from openvis_tpu_torch.checkpoint import latest_step, load_checkpoint
 from openvis_tpu_torch.config import load_config
+from openvis_tpu_torch.convert import init_params
 from openvis_tpu_torch.data import catalog, rle
 from openvis_tpu_torch.models.clip import synthetic as clip_synthetic
 
@@ -185,10 +187,33 @@ def test_eval_only_refuses_a_missing_checkpoint(cli_root):
 
 
 def test_unported_towers_raise_their_roadmap_item(cli_root):
-    _, cfg_path = cli_root
+    """``--eval-only`` with the ``bg_adapted`` tower (queue 1 item 8.6b, ported)
+    writes the engine's own predictions for that tower (the mask-prompted
+    ViT, whose features differ from the plain tower's where a crop's mask
+    leaves patches empty); fetching weights by name still raises."""
+    root, cfg_path = cli_root
     run = ["--config-file", cfg_path, "--device", "cpu", "--eval-only"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        train_net_torch.main(run + ["model.clip_adapter.name=bg_adapted"])
+    out = os.path.join(root, "out_bg_adapted")
+    opts = ["model.clip_adapter.name=bg_adapted", f"output_dir={out}"]
+    train_net_torch.main(run + opts)
+    with open(os.path.join(out, f"results_{EVAL}.json")) as f:
+        cli_preds = json.load(f)
+    # the same model (its seeded init: no checkpoint under ``out``), bank and tower
+    cfg = load_config(cfg_path, opts[:1] + [f"output_dir={out}_engine"])
+    model = init_params(train.build_model(cfg, device="cpu"), seed=cfg.seed)
+    text = train_net_torch.build_text_bank(cfg, "cpu").encode(["c1", "c2"])
+    tower = clip_towers.build_clip_visual(cfg, "cpu")
+    engine.evaluate_dataset(cfg, model, EVAL, text, clip_visual_apply=tower, device="cpu")
+    with open(os.path.join(cfg.output_dir, f"results_{EVAL}.json")) as f:
+        assert cli_preds == json.load(f) and cli_preds
+    dtype = engine.eval_dtype(cfg)  # the towers run in the eval dtype
+    crops = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(0)).to(dtype)
+    masks = torch.ones(2, 64, 64, dtype=dtype)
+    masks[1, :, 32:] = 0.0
+    plain = clip_towers.build_clip_visual(load_config(cfg_path), "cpu")(crops)
+    prompted = tower(crops, masks)
+    assert torch.equal(prompted[0], plain[0])  # every patch marked: no prompt
+    assert (prompted[1] - plain[1]).abs().max() > 1e-3
     with pytest.raises(ValueError, match="queue 1 item 8"):
         train_net_torch.main(run + ["model.clip_adapter.weights=ViT-B/16"])
     # no CLIP weights: the CLI stops, it does not drop the bank or the ensemble

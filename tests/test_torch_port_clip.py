@@ -238,10 +238,16 @@ def test_unported_clip_inputs_raise_their_roadmap_item(files):
     msgpack.write_bytes(b"")
     with pytest.raises(ValueError, match="clip.msgpack: truncated"):
         build_clip_params(str(msgpack))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        weights.convert_clip({"visual.layer1.0.conv1.weight": np.zeros(1)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        model.vision_tower("RN50")
+    # the ModifiedResNet towers (queue 1 item 8.6b) are ported: the reader reads
+    # an RN file into the tower strictly, and RN50's tower has its published
+    # widths (tests/test_torch_port_mask_adapted.py holds both to JAX)
+    rn_state = synthetic.openai_state_dict("test-tiny-rn", seed=0, dtype=torch.float32)
+    rn = weights.convert_clip({k: v.numpy() for k, v in rn_state.items()})
+    model.vision_tower("test-tiny-rn").load_state_dict(params_from_flax(rn["visual"]),
+                                                      strict=True)
+    rn50 = model.vision_tower("RN50")
+    assert len(rn50.blocks) == 16 and rn50.c_proj.weight.shape == (1024, 2048)
+    assert model.text_tower("RN50", VOCAB, CONTEXT).text_projection.shape == (512, 1024)
     # SAN's biased attention is ported (queue 1 item 5; the parity with JAX is
     # tests/test_torch_port_san.py's): the same calls run and give the
     # dense-bias result.  A zero bias is no bias; the sos-split form is the

@@ -281,17 +281,34 @@ def test_evaluate_dataset_with_the_ensemble_matches_jax(setup):
 
 
 def test_unported_towers_raise_their_roadmap_item(setup):
-    pcfg = setup[3]
+    """The towers queue 1 item 8.6 once refused now build: a plain OpenAI
+    ViT file grafts into the ``adapted``/``bg_adapted`` tower with a zero
+    ``mask_embedding`` (no prompt where every patch is marked, the zero
+    token where the mask is 0), a ModifiedResNet name builds the RN tower;
+    an empty weights path still stops."""
+    root, _, _, pcfg, _, pvis, *_ = setup
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(3, 64, 64, 3).astype(np.float32))
+    m = torch.from_numpy(rng.rand(3, 64, 64).astype(np.float32) * 0.9 + 0.05)
+    m[1, :, 32:] = 0.0
+    plain = pvis(x)
     for name in ("adapted", "bg_adapted"):
         cfg = dataclasses.replace(pcfg, model=dataclasses.replace(
             pcfg.model, clip_adapter=dataclasses.replace(pcfg.model.clip_adapter, name=name)))
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            clip_towers.build_clip_visual(cfg, "cpu")
+        vis = clip_towers.build_clip_visual(cfg, "cpu")
+        torch.testing.assert_close(vis(x), plain, rtol=0, atol=0)
+        got = vis(x, m)
+        torch.testing.assert_close(got[[0, 2]], plain[[0, 2]], rtol=0, atol=1e-5)
+        assert (got[1] - plain[1]).abs().max() > 1e-3
+    rn_path = os.path.join(root, "clip_tiny_rn.pt")
+    torch.save(clip_synthetic.openai_state_dict("test-tiny-rn", seed=1, dtype=torch.float32),
+               rn_path)
     rn = dataclasses.replace(pcfg, model=dataclasses.replace(
         pcfg.model, clip_adapter=dataclasses.replace(pcfg.model.clip_adapter,
-                                                     clip_model_name="RN50")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        clip_towers.build_clip_visual(rn, "cpu")
+                                                     clip_model_name="test-tiny-rn",
+                                                     weights=rn_path)))
+    feats = clip_towers.build_clip_visual(rn, "cpu")(x)
+    assert feats.shape == (3, D) and torch.isfinite(feats).all()
     empty = dataclasses.replace(pcfg, model=dataclasses.replace(
         pcfg.model, clip_adapter=dataclasses.replace(pcfg.model.clip_adapter, weights="")))
     with pytest.raises(ValueError, match="weights is empty"):

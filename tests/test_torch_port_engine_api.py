@@ -54,13 +54,24 @@ def test_amp_eval_leaves_the_callers_parameters(setup):
 def test_engine_refuses_what_is_not_ported(setup):
     root, text, pm = setup
     cfg = _cfg(port_config, root, True, False, "refused")
-    # the CLIP ensemble is ported (tests/test_torch_port_clip_ensemble.py); with
-    # a mask-adapted tower it is not
+    # the CLIP ensemble is ported (tests/test_torch_port_clip_ensemble.py), so
+    # is its mask-adapted tower (tests/test_torch_port_mask_adapted.py): the
+    # engine hands the tower each crop's soft mask
     adapted = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, clip_adapter=dataclasses.replace(cfg.model.clip_adapter, name="bg_adapted")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=lambda x: x,
-                                device="cpu")
+        cfg.model, clip_adapter=dataclasses.replace(cfg.model.clip_adapter, name="bg_adapted",
+                                                    clip_ensemble=True,
+                                                    clip_model_name="test-tiny")))
+    seen = []
+
+    def tower(crops, masks=None):  # (R, 64, 64, 3), (R, 64, 64) -> (R, D)
+        seen.append((tuple(crops.shape), None if masks is None else tuple(masks.shape)))
+        return crops.mean(dim=(1, 2)).repeat(1, -(-D // 3))[:, :D]
+
+    metrics = engine.evaluate_dataset(adapted, pm, DATASET, text, clip_visual_apply=tower,
+                                      device="cpu")
+    q = cfg.model.transformer_decoder.num_queries
+    assert seen and all(s == ((q, 64, 64, 3), (q, 64, 64)) for s in seen), seen
+    assert np.isfinite(list(metrics.values())).all()
     # BriVIS, OpenVISOnline and the offline archs are ported
     # (tests/test_torch_port_brivis_engine.py, tests/test_torch_port_openvis_engine.py,
     # tests/test_torch_port_offline_engine.py), so are OV2Seg

@@ -136,7 +136,9 @@ def test_unported_readers_raise(tmp_path):
         weights.convert_mask2former({}, backbone="swin")
     with pytest.raises(KeyError, match="conv1.weight"):
         weights.convert_timm_resnet({})
-    # the ViT CLIP reader is ported (tests/test_torch_port_clip.py); the
-    # ModifiedResNet one is not
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.6"):
-        weights.convert_clip({"visual.layer1.0.conv1.weight": np.zeros((64, 3, 3, 3))})
+    # the ViT and the ModifiedResNet CLIP readers are ported
+    # (tests/test_torch_port_clip.py, tests/test_torch_port_mask_adapted.py):
+    # an RN state dict is read as an RN tree, whose next key is missing here
+    with pytest.raises(KeyError, match="visual.bn1.weight"):
+        weights.convert_clip({"visual.layer1.0.conv1.weight": np.zeros((64, 3, 3, 3)),
+                              "visual.conv1.weight": np.zeros((32, 3, 3, 3))})

@@ -218,7 +218,9 @@ def load_clip_visual(model, clip_tree) -> None:
         logger.info("the model has no clip_adapter.visual: the CLIP visual weights are not "
                     "loaded (JAX grafts them where MasQCLIP's tower does not read them)")
         return
-    visual.load_state_dict(params_from_flax(clip_tree["visual"]), strict=True)
+    # a mask-adapted file's prompt table: JAX's graft carries it, its tower never reads it
+    vtree = {k: v for k, v in clip_tree["visual"].items() if k != "mask_embedding"}
+    visual.load_state_dict(params_from_flax(vtree), strict=True)
     logger.info("loaded the CLIP visual weights into clip_adapter.visual")
 
 
